@@ -1,0 +1,257 @@
+"""Signature index over a reference database — built once, grown forever.
+
+The port of ``repro/index/store.py`` for ``layout="band"``:
+
+* packed signatures ``sigs`` (N, f//32) uint32 on the host, mirrored on the
+  device as int32 bit patterns — job 1's output;
+* ``valid`` (N,) bool — the paper's non-zero-signature rule (§5.2);
+* per-band sorted buckets in CSR form over band keys with ``bands >= d+1``
+  (the pigeonhole guarantee: a probe of all bands has no false negatives
+  within Hamming d).
+
+Growth is append-only: ``add()`` seals a new segment, the merged bucket
+table is a stable linear merge materialized lazily, ``compact()`` folds
+the segments into one. ``layout="flip"``, save/load and crash recovery
+are not ported yet.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+
+import numpy as np
+import torch
+
+from ..core.join import band_keys
+from ..core.pipeline import LSHConfig, ScalLoPS
+from ..obs import span
+from ..util import i32_to_u32, resolve_device, u32_to_i32
+from . import segments as seglib
+from .segments import Segment
+
+FORMAT_VERSION = 1
+
+# Fields of LSHConfig that determine signature/bucket semantics; serving
+# knobs (max_pairs, join_method) do not invalidate an index.
+_FINGERPRINT_FIELDS = ("k", "T", "f", "d", "scheme", "siggen_method")
+
+
+def config_fingerprint(cfg: LSHConfig, *, layout: str, bands: int,
+                       interleave: bool = True,
+                       key_hash: str = "none",
+                       n_shards: int = 1) -> str:
+    """Stable 16-hex-digit fingerprint of the index-relevant config —
+    the same digest the reference computes for the same config."""
+    payload = {
+        "cfg": {f: getattr(cfg, f) for f in _FINGERPRINT_FIELDS},
+        "layout": layout, "bands": bands, "interleave": interleave,
+        "format": FORMAT_VERSION,
+    }
+    if key_hash != "none":
+        payload["key_hash"] = key_hash
+    if n_shards != 1:
+        payload["n_shards"] = n_shards
+    blob = json.dumps(payload, sort_keys=True)
+    return hashlib.sha256(blob.encode()).hexdigest()[:16]
+
+
+def _job1(sl: ScalLoPS, ref_ids, ref_lens):
+    """Signatures (uint32 numpy) and validity (bool numpy) of new rows,
+    computed on the pipeline's device."""
+    sigs = i32_to_u32(sl.signatures(ref_ids, ref_lens))
+    valid = (sl.feature_counts(ref_ids, ref_lens) > 0).cpu().numpy()
+    return sigs, valid
+
+
+class SignatureIndex:
+    """Segmented reference index over packed LSH signatures.
+
+    Use :meth:`build` (from sequences); query via :meth:`probe` or the
+    serving layer (:mod:`repro_torch.index.service`); grow via :meth:`add`.
+    """
+
+    def __init__(self, cfg: LSHConfig, sigs: np.ndarray, valid: np.ndarray,
+                 *, layout: str = "band", bands: int | None = None,
+                 interleave: bool = True, key_hash: str = "splitmix",
+                 n_shards: int = 1, device=None):
+        if layout == "flip":
+            raise NotImplementedError(
+                "layout='flip' comes with the job-2 slice of the port "
+                "(flip masks and flip_join); use layout='band'")
+        if layout != "band":
+            raise ValueError(f"unknown index layout {layout!r}")
+        if key_hash not in ("splitmix", "none"):
+            raise ValueError(f"unknown key_hash {key_hash!r}")
+        if n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+        self.cfg = cfg
+        self.layout = layout
+        self.device = resolve_device(device)
+        self.n_shards = int(n_shards)
+        self.interleave = bool(interleave)
+        self.key_hash = key_hash
+        self.bands = int(bands if bands is not None else max(cfg.d + 1, 1))
+        if self.bands < cfg.d + 1:
+            raise ValueError("bands must be >= d+1 for an exact probe")
+        self.sigs = np.ascontiguousarray(np.asarray(sigs, np.uint32))
+        self.valid = np.asarray(valid, bool).reshape(-1).copy()
+        if self.sigs.shape != (self.valid.shape[0], cfg.f // 32):
+            raise ValueError(f"sigs {self.sigs.shape} and valid "
+                             f"{self.valid.shape} do not match f={cfg.f}")
+        self.segments: list[Segment] = []   # sealed (CSR built)
+        self._pending: list[tuple] = []     # (sigs, valid, base) to seal
+        if self.size:
+            self._pending.append((self.sigs, self.valid, 0))
+        self.generation = 0
+        self._merged_stale = True
+        self._csr_np = None
+        self._partitions = {}
+        self._dev_sigs = None
+        self._dev_valid = None
+        self._pipeline = None
+
+    # ------------------------------------------------------------ properties
+    @property
+    def size(self) -> int:
+        return self.sigs.shape[0]
+
+    @property
+    def n_bands(self) -> int:
+        return self.bands
+
+    @property
+    def epoch(self) -> int:
+        """Segment count (sealed + pending)."""
+        return len(self.segments) + len(self._pending)
+
+    @property
+    def fingerprint(self) -> str:
+        return config_fingerprint(self.cfg, layout=self.layout,
+                                   bands=self.bands,
+                                   interleave=self.interleave,
+                                   key_hash=self.key_hash,
+                                   n_shards=self.n_shards)
+
+    @property
+    def device_sigs(self) -> torch.Tensor:
+        """(N, f//32) int32 bit patterns on the device (uploaded once)."""
+        if self._dev_sigs is None or self._dev_sigs.shape[0] != self.size:
+            self._dev_sigs = u32_to_i32(self.sigs).to(self.device)
+            self._dev_valid = torch.from_numpy(self.valid).to(self.device)
+        return self._dev_sigs
+
+    @property
+    def device_valid(self) -> torch.Tensor:
+        self.device_sigs
+        return self._dev_valid
+
+    # ------------------------------------------------------------ build
+    @classmethod
+    def build(cls, cfg: LSHConfig, ref_ids, ref_lens, *,
+              layout: str = "band", bands: int | None = None,
+              interleave: bool = True, key_hash: str = "splitmix",
+              n_shards: int = 1, device=None) -> "SignatureIndex":
+        """Run job 1 (signature generation + validity) over the reference
+        set on the device and index the result."""
+        dev = resolve_device(device)
+        sl = ScalLoPS(cfg, device=dev)
+        sigs, valid = _job1(sl, ref_ids, ref_lens)
+        idx = cls(cfg, sigs, valid, layout=layout, bands=bands,
+                  interleave=interleave, key_hash=key_hash,
+                  n_shards=n_shards, device=dev)
+        idx._pipeline = sl
+        return idx
+
+    def add(self, ref_ids, ref_lens) -> None:
+        """Incremental growth: signatures for the NEW rows only, appended as
+        a pending segment and sealed lazily on the next probe."""
+        if self._pipeline is None:
+            self._pipeline = ScalLoPS(self.cfg, device=self.device)
+        new_sigs, new_valid = _job1(self._pipeline, ref_ids, ref_lens)
+        if new_sigs.shape[0] == 0:
+            return
+        base = self.size
+        self.sigs = np.concatenate([self.sigs, new_sigs], axis=0)
+        self.valid = np.concatenate([self.valid, new_valid], axis=0)
+        self._pending.append((new_sigs, new_valid, base))
+        self._merged_stale = True
+        self._partitions = {}
+
+    def seal(self) -> None:
+        """Seal pending rows into segments (bucket the new rows)."""
+        if not self._pending:
+            return
+        with span("seal", cat="lifecycle", pending=len(self._pending),
+                  epoch=len(self.segments)):
+            while self._pending:
+                sigs, valid, base = self._pending.pop(0)
+                self.segments.append(seglib.build_segment(
+                    sigs, valid, base, layout=self.layout, f=self.cfg.f,
+                    d=self.cfg.d, bands=self.bands,
+                    interleave=self.interleave, key_hash=self.key_hash,
+                    device=self.device))
+
+    def _ensure_built(self) -> None:
+        """Seal pending segments and materialize the merged bucket table."""
+        self.seal()
+        if not self._merged_stale and self._csr_np is not None:
+            return
+        if self.segments:
+            self._csr_np = seglib.merge_band_csrs(
+                [s.csr for s in self.segments])
+        else:
+            self._csr_np = [seglib._empty_csr() for _ in range(self.n_bands)]
+        self._partitions = {}
+        self._merged_stale = False
+
+    def compact(self) -> None:
+        """Fold every segment into one (the explicit reduce step). Probe
+        results are identical before and after."""
+        self.seal()
+        if len(self.segments) == 1:
+            return
+        with span("compact_index", cat="lifecycle",
+                  segments=len(self.segments), size=self.size):
+            self._ensure_built()
+            self.segments = [Segment(0, self.sigs, self.valid, self._csr_np)]
+            self._pending = []
+            self.generation += 1
+
+    def partition(self, n_shards: int | None = None):
+        """Shard-owned stacked CSR slabs, cached per shard count."""
+        from .partition import BucketPartition
+        self._ensure_built()
+        n = int(n_shards if n_shards is not None else self.n_shards)
+        part = self._partitions.get(n)
+        if part is None:
+            part = BucketPartition(self._csr_np, n, device=self.device)
+            self._partitions[n] = part
+        return part
+
+    # ------------------------------------------------------------ probing
+    def query_keys(self, q_sigs: torch.Tensor) -> torch.Tensor:
+        """Per-band probe keys for a query batch: (n_bands, B) int64
+        holding uint32 values."""
+        return band_keys(q_sigs.to(self.device), self.cfg.f, self.bands,
+                         interleave=self.interleave,
+                         key_hash=self.key_hash).T.contiguous()
+
+    def probe(self, q_sigs: torch.Tensor, *, cap: int):
+        """Candidate generation: for each query, up to ``cap`` reference ids
+        per band whose bucket key matches.
+
+        Returns (cand (B, n_bands*cap) int32 with -1 padding — duplicates
+        across bands allowed, overflowed 0-d bool tensor — True iff some
+        matched bucket held more than ``cap`` entries).
+        """
+        from .service import _probe_csr_fused
+        self._ensure_built()
+        qk = self.query_keys(q_sigs)
+        keys_s, offs_s, ids_s = self.partition(1).probe_arrays(0)
+        if keys_s.shape[1] == 0:           # no buckets at all (empty index)
+            B = qk.shape[1]
+            return (torch.full((B, self.n_bands * cap), -1, dtype=torch.int32,
+                               device=self.device),
+                    torch.zeros((), dtype=torch.bool, device=self.device))
+        cand, sizes = _probe_csr_fused(qk, keys_s, offs_s, ids_s, cap=cap)
+        return cand, torch.amax(sizes) > cap

@@ -1,0 +1,96 @@
+"""Wrappers that route each kernel call by the device of its tensors.
+
+A CUDA tensor goes to the hand-written kernel, or the call raises; a CPU
+tensor goes to the kernel's plain twin (``ref.py``). There is no fallback
+from one to the other. Each wrapper counts its kernel launches in
+:data:`LAUNCHES` — a run can show that its main path went through the
+kernels — and counts nothing when the twin runs. While
+:data:`RECORDED` is a dict, each wrapper also keeps there a copy of the
+first inputs it launches its kernel on, so a smoke run can replay the
+main path's own shapes against the twins.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import ref
+
+#: kernel launches since the last :func:`reset_launches`, by kernel
+LAUNCHES = {"siggen_accumulate": 0, "hamming_dist": 0,
+            "wave_scores_linear": 0, "wave_scores_affine": 0}
+
+#: ``None``, or a dict that collects, per kernel, the first launch's
+#: ``(args, kwargs)`` as the kernel launcher takes them
+RECORDED: dict | None = None
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _launch(name: str, launcher, *args, **kw) -> torch.Tensor:
+    """Launch one kernel; count it and, while recording, keep its first
+    inputs."""
+    out = launcher(*args, **kw)
+    LAUNCHES[name] += 1
+    if RECORDED is not None and name not in RECORDED:
+        RECORDED[name] = (tuple(a.clone() for a in args), dict(kw))
+    return out
+
+
+def _on_cuda(*tensors: torch.Tensor) -> bool:
+    """True when every tensor is on CUDA, False when every one is on the
+    CPU; anything else raises."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cuda"}:
+        return True
+    if kinds == {"cpu"}:
+        return False
+    raise ValueError(f"operands on devices {sorted(kinds)}: the kernels run "
+                     f"on CUDA and their twins on the CPU")
+
+
+def signatures_fused(rows, cb, H, *, T: int) -> torch.Tensor:
+    """Fused SimHash accumulation V (S, f) int32 (kernel K1)."""
+    # zero padding of ragged rows/words is exact only for T >= 1 (a zero
+    # operand scores 0 < T); the reference asserts the same
+    if T < 1:
+        raise ValueError("padding exactness requires T >= 1 (paper uses T >= 11)")
+    if _on_cuda(rows, cb, H):
+        from .siggen import siggen_accumulate
+        return _launch("siggen_accumulate", siggen_accumulate, rows, cb, H,
+                       T=T)
+    return ref.siggen_accumulate_ref(rows, cb, H, T)
+
+
+def all_pairs_hamming(q, r) -> torch.Tensor:
+    """All-pairs Hamming distances (Q, R) int32 (kernel K2)."""
+    if _on_cuda(q, r):
+        from .hamming import hamming_dist
+        return _launch("hamming_dist", hamming_dist, q, r)
+    return ref.hamming_dist_ref(q, r)
+
+
+def wavefront_scores(qs, rs, *, gap_mode: str = "linear",
+                     gap_open: int | None = None,
+                     gap_extend: int | None = None) -> torch.Tensor:
+    """Batched SW best scores (B,) int32 of a (B, Lq) x (B, Lr) pair block
+    via the anti-diagonal sweep (kernel K3), linear or affine gaps."""
+    from ..align.gotoh import GAP_EXTEND, GAP_OPEN
+    from ..align.smith_waterman import GAP
+
+    if gap_mode == "affine":
+        go = GAP_OPEN if gap_open is None else int(gap_open)
+        ge = GAP_EXTEND if gap_extend is None else int(gap_extend)
+    elif gap_mode == "linear":
+        go = ge = GAP if gap_open is None else int(gap_open)
+    else:
+        raise ValueError(f"unknown gap_mode {gap_mode!r}")
+    affine = gap_mode == "affine"
+    if _on_cuda(qs, rs):
+        from .sw import wave_scores
+        return _launch(f"wave_scores_{gap_mode}", wave_scores, qs, rs,
+                       gap_open=go, gap_extend=ge, affine=affine)
+    return ref.wave_scores_ref(qs, rs, gap_open=go, gap_extend=ge,
+                               affine=affine)

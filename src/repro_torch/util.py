@@ -1,0 +1,42 @@
+"""Small shared helpers: power-of-two quantization, device resolution and
+the uint32 <-> int32 bit-pattern conversions."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def next_pow2(x: int) -> int:
+    """Smallest power of two >= x; 0 stays 0 (callers wanting a nonzero
+    floor clamp first)."""
+    return 1 << (int(x) - 1).bit_length() if x > 0 else 0
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the CUDA card unless the caller
+    names another. Raises when CUDA is asked for and there is no card —
+    the port never falls back to the CPU on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain torch path on the CPU")
+    return dev
+
+
+def u32_to_i32(a) -> torch.Tensor:
+    """uint32 numpy words -> int32 tensor holding the same bit pattern (a
+    view, no copy). Signatures travel as int32 bits: XOR and popcount do
+    not care about the sign, and torch's uint32 lacks most operators."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.uint32).view(np.int32))
+
+
+def i32_to_u32(t: torch.Tensor) -> np.ndarray:
+    """int32 bit-pattern tensor -> uint32 numpy words (host copy)."""
+    return t.detach().cpu().numpy().view(np.uint32)
+
+
+def as_unsigned(t: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns -> int64 holding the unsigned value, the form
+    every shift, sort and search of 32-bit words runs on in the port."""
+    return t.to(torch.int64) & 0xFFFFFFFF

@@ -1,0 +1,186 @@
+"""The port's kernels (K1 siggen, K2 dense Hamming, K3 wavefront SW) against
+the JAX reference.
+
+On the CPU each wrapper in ``repro_torch.kernels.ops`` runs its kernel's
+plain twin; those twins are held here against the JAX Pallas kernels (in
+interpret mode, as ``tests/test_kernels.py`` runs them) and the host
+oracles. The CUDA kernels themselves run only on a card
+(``tests/test_torch_cuda.py``). Every output is integer, so the tolerance
+is exact equality.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels import ops as j_ops
+from repro.kernels import ref as j_ref
+
+from repro_torch.core.alphabet import PAD
+from repro_torch.core.neighbors import codebook_onehot, shingle_rows
+from repro_torch.core.shingle import extract_shingles
+from repro_torch.core.simhash import hyperplanes
+from repro_torch.kernels import ops, ref
+from repro_torch.util import u32_to_i32
+
+
+def _siggen_inputs(S, k, f, seed):
+    """Genuine shingle rows (masked rows zero), the one-hot codebook and
+    the hyperplanes, as numpy. Built by the port's job-1 modules, which
+    ``test_torch_core.py`` holds equal to the reference's."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, 20, (S, k + 4)).astype(np.int8)
+    lens = rng.integers(k - 1, k + 5, S).astype(np.int32)   # some invalid
+    sh, mask = extract_shingles(torch.from_numpy(ids), torch.from_numpy(lens),
+                                k)
+    rows = (shingle_rows(sh) * mask[..., None]).reshape(-1, k * 21)[:S]
+    rows = rows.numpy().astype(np.int32)
+    scheme = "java" if f <= 32 else "splitmix"
+    return rows, codebook_onehot(k), hyperplanes(k, f, scheme)
+
+
+def _pairs(B, Lq, Lr, seed):
+    """Random residues with ragged PAD tails (some rows all PAD)."""
+    rng = np.random.default_rng(seed)
+    qs = rng.integers(0, 20, (B, Lq)).astype(np.int8)
+    rs = rng.integers(0, 20, (B, Lr)).astype(np.int8)
+    for n in range(B):
+        qs[n, rng.integers(0, Lq + 1):] = PAD
+        rs[n, rng.integers(Lr // 3, Lr + 1):] = PAD
+    qs[-1, :] = PAD
+    return qs, rs
+
+
+# ------------------------------------------------------------ K1 siggen
+@pytest.mark.parametrize("S,k,f,T,bs,bw", [
+    (16, 2, 32, 8, 8, 128),
+    (50, 2, 64, 10, 16, 200),     # ragged blocks on the reference side
+    (64, 3, 32, 13, 64, 512),     # the paper's k=3/T=13
+])
+def test_siggen_twin_matches_pallas_kernel(S, k, f, T, bs, bw):
+    rows, cb, H = _siggen_inputs(S, k, f, S + k)
+    want = np.asarray(j_ops.signatures_fused(
+        jnp.asarray(rows), jnp.asarray(cb), jnp.asarray(H), T=T, bs=bs,
+        bw=bw))
+    np.testing.assert_array_equal(
+        np.asarray(j_ref.siggen_accumulate_ref(rows, cb, H, T)), want)
+    got = ops.signatures_fused(torch.from_numpy(rows), torch.from_numpy(cb),
+                               torch.from_numpy(H), T=T)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_siggen_twin_blocking_is_exact():
+    rows, cb, H = _siggen_inputs(40, 3, 64, 1)
+    t = [torch.from_numpy(a) for a in (rows, cb, H)]
+    np.testing.assert_array_equal(
+        ref.siggen_accumulate_ref(*t, 13, block=7).numpy(),
+        ref.siggen_accumulate_ref(*t, 13).numpy())
+
+
+def test_siggen_rejects_threshold_below_one():
+    rows, cb, H = _siggen_inputs(8, 2, 32, 0)
+    with pytest.raises(ValueError):
+        ops.signatures_fused(torch.from_numpy(rows), torch.from_numpy(cb),
+                             torch.from_numpy(H), T=0)
+
+
+# ------------------------------------------------------------ K2 hamming
+@pytest.mark.parametrize("Q,R,nw", [(8, 8, 1), (37, 61, 2), (5, 300, 4)])
+def test_hamming_twin_matches_pallas_kernel(Q, R, nw):
+    rng = np.random.default_rng(Q * 1000 + R)
+    q = rng.integers(0, 2**32, (Q, nw), dtype=np.uint64).astype(np.uint32)
+    r = rng.integers(0, 2**32, (R, nw), dtype=np.uint64).astype(np.uint32)
+    want = np.asarray(j_ops.all_pairs_hamming(jnp.asarray(q), jnp.asarray(r),
+                                              bq=8, br=128))
+    got = ops.all_pairs_hamming(u32_to_i32(q), u32_to_i32(r))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ------------------------------------------------------------ K3 wavefront
+@pytest.mark.parametrize("gap_mode", ["linear", "affine"])
+@pytest.mark.parametrize("B,Lq,Lr", [(5, 17, 23), (4, 24, 9)])
+def test_wave_twin_matches_pallas_kernel(gap_mode, B, Lq, Lr):
+    qs, rs = _pairs(B, Lq, Lr, B * 100 + Lq)
+    want = np.asarray(j_ops.wavefront_scores(qs, rs, gap_mode=gap_mode,
+                                             bb=4))
+    got = ops.wavefront_scores(torch.from_numpy(qs), torch.from_numpy(rs),
+                               gap_mode=gap_mode)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("go,ge", [(-11, -1), (-4, -4), (-6, -2)])
+def test_wave_twin_matches_host_gotoh_oracle(go, ge):
+    """Unpadded pairs scored by the -inf-boundary host oracle; the twin
+    sees them inside a PAD-padded block. open == extend is linear."""
+    rng = np.random.default_rng(-go * 10 - ge)
+    B, Lq, Lr = 6, 40, 33
+    qs = np.full((B, Lq), PAD, np.int8)
+    rs = np.full((B, Lr), PAD, np.int8)
+    pairs = []
+    for n in range(B):
+        lq, lr = rng.integers(1, Lq + 1), rng.integers(1, Lr + 1)
+        q = rng.integers(0, 20, lq).astype(np.int8)
+        r = rng.integers(0, 20, lr).astype(np.int8)
+        if n == 0:      # a planted near-copy so the score is large
+            lr = lq = min(lq, Lr)
+            q = q[:lq]
+            r = q.copy()
+            r[::5] = (r[::5] + 1) % 20
+        qs[n, :lq], rs[n, :lr] = q, r
+        pairs.append((q, r))
+    want = [ref.sw_affine_ref(q, r, go, ge)[0] for q, r in pairs]
+    for q, r in pairs[:2]:      # the port's oracle is the reference's
+        assert ref.sw_affine_ref(q, r, go, ge)[0] == \
+            j_ref.sw_affine_ref(q, r, go, ge)[0]
+    gap_mode = "linear" if go == ge else "affine"
+    got = ops.wavefront_scores(torch.from_numpy(qs), torch.from_numpy(rs),
+                               gap_mode=gap_mode, gap_open=go,
+                               gap_extend=ge)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_wave_twin_int16_and_int32_lanes_agree():
+    from repro_torch.align import gotoh
+    qs, rs = _pairs(3, 30, 30, 9)
+    assert gotoh.lane_dtype(30, 30) == torch.int16
+    assert gotoh.lane_dtype(2000, 10) == torch.int32
+    q, r = torch.from_numpy(qs), torch.from_numpy(rs)
+    kw = dict(gap_open=-11, gap_extend=-1, affine=True)
+    a = gotoh.wave_scores(q, r, **kw)
+    orig = gotoh.lane_dtype
+    try:
+        gotoh.lane_dtype = lambda Lq, Lr: torch.int32
+        b = gotoh.wave_scores(q, r, **kw)
+    finally:
+        gotoh.lane_dtype = orig
+    np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def test_rowwave_matches_reference_rowwave():
+    from repro.align.smith_waterman import _sw_scores_batch
+    from repro_torch.align.smith_waterman import dp_scores_block
+    qs, rs = _pairs(5, 19, 26, 3)
+    want = np.asarray(_sw_scores_batch(jnp.asarray(qs), jnp.asarray(rs)))
+    got = dp_scores_block(torch.from_numpy(qs), torch.from_numpy(rs),
+                          dp_kernel="rowwave")
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ------------------------------------------------------------ routing
+def test_cpu_tensors_run_the_twins_and_count_no_launch():
+    ops.reset_launches()
+    qs, rs = _pairs(2, 8, 8, 0)
+    ops.wavefront_scores(torch.from_numpy(qs), torch.from_numpy(rs))
+    q = torch.zeros((2, 1), dtype=torch.int32)
+    ops.all_pairs_hamming(q, q)
+    assert all(v == 0 for v in ops.LAUNCHES.values())
+
+
+def test_meta_device_operands_are_refused():
+    q = torch.zeros((2, 1), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        ops.all_pairs_hamming(q, q.to("meta"))
