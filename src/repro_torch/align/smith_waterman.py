@@ -1,4 +1,5 @@
-"""Smith-Waterman scoring of gathered pair blocks for the serving re-rank.
+"""Smith-Waterman scoring of gathered pair blocks, the ungapped X-drop
+prefilter and the percent-identity traceback.
 
 ``sw_gather_scores`` gathers both sides of each (query, reference) pair
 from device-resident corpora and scores the block with one DP sweep:
@@ -7,13 +8,18 @@ from device-resident corpora and scores the block with one DP sweep:
   affine gaps: kernel K3 on CUDA (``kernels/csrc/sw.cu``), its plain twin
   (``align/gotoh.py``) on the CPU;
 * ``dp_kernel="rowwave"`` — the linear-gap row wave, each row resolved by a
-  max-plus prefix scan (H[i, 1:] = cummax(A + c*t) - c*t, c = -GAP). Plain
-  torch on the CPU; on CUDA it needs kernel K7, which is not ported yet.
+  max-plus prefix scan (H[i, 1:] = cummax(A + c*t) - c*t, c = -GAP):
+  kernel K7 on CUDA, its twin (``kernels/ref.py``) on the CPU.
 
-The PID traceback path of the reference is not ported yet.
+``ungapped_xdrop_scores`` is the all-pairs prefilter (kernel K4 on CUDA).
+``sw_wave_pid`` computes the row wave's DP matrices with plain torch on
+the blocks' device, as the reference computes them with jnp outside any
+Pallas kernel, and runs the traceback on the host: no kernel is ported
+for it.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.alphabet import BLOSUM62_PADDED, PAD
@@ -33,23 +39,23 @@ def _sub_matrix(qs: torch.Tensor, rs: torch.Tensor) -> torch.Tensor:
     return torch.where(valid, sub, NEG)
 
 
-def _rowwave_scores(qs: torch.Tensor, rs: torch.Tensor) -> torch.Tensor:
-    """Row-wave linear-gap SW best scores: (B, Lq) x (B, Lr) -> (B,) int32."""
+def rowwave_rows(qs: torch.Tensor, rs: torch.Tensor, *, gap: int = GAP):
+    """The linear-gap row wave: yields H[i, :] (B, Lr+1) int32 for
+    i = 1..Lq of each pair of a (B, Lq) x (B, Lr) block, each row one
+    max-plus prefix scan of the row before."""
     B, Lq = qs.shape
     Lr = rs.shape[1]
     sub = _sub_matrix(qs, rs)
-    c = -GAP
+    c = -gap
     t = torch.arange(1, Lr + 1, dtype=torch.int32, device=qs.device)
     prev = torch.zeros((B, Lr + 1), dtype=torch.int32, device=qs.device)
     zcol = prev[:, :1]
-    best = torch.zeros((B,), dtype=torch.int32, device=qs.device)
     for i in range(Lq):
-        a = torch.maximum(prev[:, :-1] + sub[:, i], prev[:, 1:] + GAP)
+        a = torch.maximum(prev[:, :-1] + sub[:, i], prev[:, 1:] + gap)
         a = a.clamp_min(0)
         p = torch.cummax(a + c * t, dim=1).values
         prev = torch.cat([zcol, p - c * t], dim=1)
-        best = torch.maximum(best, prev.amax(dim=1))
-    return best
+        yield prev
 
 
 def gather_rows(ids_dev: torch.Tensor, lens_dev: torch.Tensor,
@@ -81,12 +87,7 @@ def dp_scores_block(qm, rm, *, dp_kernel: str = "wavefront",
                          "wave's prefix-scan closed form only holds for "
                          "linear penalties)")
     if dp_kernel == "rowwave":
-        if qm.is_cuda:
-            raise NotImplementedError(
-                "dp_kernel='rowwave' on CUDA needs kernel K7 (the port of "
-                "repro/kernels/sw.py::sw_scores_kernel), not ported yet; "
-                "use dp_kernel='wavefront'")
-        return _rowwave_scores(qm, rm)
+        return ops.sw_rowwave_scores(qm, rm)
     return ops.wavefront_scores(qm, rm, gap_mode=gap_mode,
                                 gap_open=gap_open, gap_extend=gap_extend)
 
@@ -101,3 +102,75 @@ def sw_gather_scores(q_ids, q_lens, r_ids, r_lens, qi, ri, *,
     rm = gather_rows(r_ids, r_lens, ri, Lr)
     return dp_scores_block(qm, rm, dp_kernel=dp_kernel, gap_mode=gap_mode,
                            gap_open=gap_open, gap_extend=gap_extend)
+
+
+def ungapped_xdrop_scores(qs: torch.Tensor, rs: torch.Tensor, *,
+                          x: int | None = None) -> torch.Tensor:
+    """Batched ungapped X-drop scores: (B, Lq) x (B, Lr) int8 -> (B,)
+    int32 on the blocks' device (kernel K4 on CUDA). ``x=None`` disables
+    the drop test (plain best ungapped segment). Always a lower bound of
+    the gapped SW score, so thresholding on it never adds pairs."""
+    from ..kernels import ops
+    return ops.ungapped_wave_scores(qs, rs, x=x)
+
+
+def _traceback_pid(H: np.ndarray, q: np.ndarray, r: np.ndarray,
+                   sub: np.ndarray) -> tuple[float, int]:
+    """Host traceback from argmax(H): returns (PID %, alignment length)."""
+    i, j = np.unravel_index(np.argmax(H), H.shape)
+    ident = 0
+    length = 0
+    while i > 0 and j > 0 and H[i, j] > 0:
+        h = H[i, j]
+        if h == H[i - 1, j - 1] + sub[i - 1, j - 1]:
+            ident += int(q[i - 1] == r[j - 1])
+            length += 1
+            i, j = i - 1, j - 1
+        elif h == H[i - 1, j] + GAP:
+            length += 1
+            i -= 1
+        else:
+            length += 1
+            j -= 1
+    return (100.0 * ident / max(length, 1), length)
+
+
+def _sw_batch_with_matrix(qs: torch.Tensor, rs: torch.Tensor):
+    """(best (B,) int32, H (B, Lq+1, Lr+1) int32) of a pair block, the row
+    wave in plain torch on the blocks' device."""
+    B, Lr = qs.shape[0], rs.shape[1]
+    rows = [torch.zeros((B, Lr + 1), dtype=torch.int32, device=qs.device)]
+    rows.extend(rowwave_rows(qs, rs))
+    H = torch.stack(rows, dim=1)
+    return H.amax(dim=(1, 2)), H
+
+
+def sw_wave_pid(qs, rs, *, chunk: int = 32):
+    """Batched scores + PID: the DP matrices of each chunk of pairs on the
+    blocks' device, then the host traceback per pair.
+
+    qs (N, Lq) x rs (N, Lr) int8 (tensors or arrays), PAD-padded (padding
+    only ever suffixes a sequence, so the argmax cell of each padded DP
+    matrix is the unpadded one's). Returns (pid (N,) float64, length (N,)
+    int64, score (N,) int64); all-PAD rows give 0, 0, 0.
+    """
+    qs = torch.as_tensor(qs, dtype=torch.int8)
+    rs = torch.as_tensor(rs, dtype=torch.int8)
+    N = qs.shape[0]
+    pid = np.zeros(N)
+    length = np.zeros(N, np.int64)
+    score = np.zeros(N, np.int64)
+    for i in range(0, N, chunk):
+        qc, rc = qs[i:i + chunk], rs[i:i + chunk]
+        sc, H = _sw_batch_with_matrix(qc, rc)
+        Hn = H.cpu().numpy()
+        sc = sc.cpu().numpy()
+        qn = qc.cpu().numpy().astype(np.int64)
+        rn = rc.cpu().numpy().astype(np.int64)
+        for n in range(len(qn)):
+            sub = BLOSUM62_PADDED[qn[n]][:, rn[n]]
+            p, l = _traceback_pid(Hn[n], qn[n], rn[n], sub)
+            pid[i + n] = p
+            length[i + n] = l
+            score[i + n] = int(sc[n])
+    return pid, length, score

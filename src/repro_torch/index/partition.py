@@ -4,7 +4,8 @@ Every (band, key) bucket is owned by shard ``mix32(key) % n_shards``, and
 each shard gets a self-contained stacked-padded CSR slab, the layout the
 fused probe runs against (``repro/index/partition.py``). The single-device
 probe is shard 0 of the 1-way partition. Sharded serving is not ported
-yet; this module carries what the single-device probe needs.
+yet; this module carries what the single-device probe and the all-pairs
+self-join need.
 
 Padding follows the probe's inertness rules: keys pad by repeating the
 last key (sorted order kept; a search finds the first occurrence), offsets
@@ -61,10 +62,18 @@ def _take_buckets(keys, offsets, ids, sel):
             ids[idx].astype(np.int32))
 
 
+def _pair_total(offsets) -> int:
+    """Within-bucket pairs of one CSR: sum of m*(m-1)/2, in int64."""
+    m = np.diff(np.asarray(offsets)).astype(np.int64)
+    return int((m * (m - 1) // 2).sum())
+
+
 class BucketPartition:
     """``n_shards`` shard-owned slabs over per-band CSR bucket tables:
-    per-shard host CSRs (``shards[s][b]``) and the stacked padded slabs,
-    uploaded to ``device`` once on first use."""
+    per-shard host CSRs (``shards[s][b]``), the exact within-bucket pair
+    total of each (shard, band) in int64 (``pair_totals``, what the
+    self-join sizes its buffers from: it must never wrap) and the stacked
+    padded slabs, uploaded to ``device`` once on first use."""
 
     def __init__(self, csr_per_band, n_shards: int, *,
                  device=torch.device("cpu")):
@@ -79,6 +88,10 @@ class BucketPartition:
             [_take_buckets(keys, offsets, ids, np.flatnonzero(owners[b] == s))
              for b, (keys, offsets, ids) in enumerate(csr_per_band)]
             for s in range(self.n_shards)]
+        self.pair_totals = np.array(
+            [[_pair_total(offsets) for _, offsets, _ in per]
+             for per in self.shards], np.int64).reshape(self.n_shards,
+                                                        self.n_bands)
         self._stacked = self._stack()
         self._dev = None
 

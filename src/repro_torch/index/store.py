@@ -108,6 +108,7 @@ class SignatureIndex:
         self._partitions = {}
         self._dev_sigs = None
         self._dev_valid = None
+        self._dev_band_keys = None
         self._pipeline = None
 
     # ------------------------------------------------------------ properties
@@ -144,6 +145,20 @@ class SignatureIndex:
     def device_valid(self) -> torch.Tensor:
         self.device_sigs
         return self._dev_valid
+
+    @property
+    def device_band_keys(self) -> torch.Tensor:
+        """(N, n_bands) int64 holding every sequence's uint32 bucket key in
+        every band, on the device. A sequence occupies exactly one bucket
+        per band, so a self-join candidate pair is a cross-band duplicate
+        iff its two rows agree in an earlier band
+        (``index/spgemm.py::spgemm_join_self_keys``)."""
+        if (self._dev_band_keys is None
+                or self._dev_band_keys.shape[0] != self.size):
+            self._dev_band_keys = band_keys(
+                self.device_sigs, self.cfg.f, self.bands,
+                interleave=self.interleave, key_hash=self.key_hash)
+        return self._dev_band_keys
 
     # ------------------------------------------------------------ build
     @classmethod
@@ -227,6 +242,18 @@ class SignatureIndex:
             part = BucketPartition(self._csr_np, n, device=self.device)
             self._partitions[n] = part
         return part
+
+    def delta_partition(self, n_shards: int, from_epoch: int):
+        """Partition of just the segments sealed at or after
+        ``from_epoch``; never touches the merged table."""
+        from .partition import BucketPartition
+        self.seal()
+        segs = self.segments[from_epoch:]
+        if segs:
+            csr = seglib.merge_band_csrs([s.csr for s in segs])
+        else:
+            csr = [seglib._empty_csr() for _ in range(self.n_bands)]
+        return BucketPartition(csr, n_shards, device=self.device)
 
     # ------------------------------------------------------------ probing
     def query_keys(self, q_sigs: torch.Tensor) -> torch.Tensor:

@@ -17,7 +17,8 @@ from . import ref
 
 #: kernel launches since the last :func:`reset_launches`, by kernel
 LAUNCHES = {"siggen_accumulate": 0, "hamming_dist": 0,
-            "wave_scores_linear": 0, "wave_scores_affine": 0}
+            "wave_scores_linear": 0, "wave_scores_affine": 0,
+            "ungapped_scores": 0, "upper_pairs": 0, "sw_rowwave": 0}
 
 #: ``None``, or a dict that collects, per kernel, the first launch's
 #: ``(args, kwargs)`` as the kernel launcher takes them
@@ -94,3 +95,40 @@ def wavefront_scores(qs, rs, *, gap_mode: str = "linear",
                        gap_open=go, gap_extend=ge, affine=affine)
     return ref.wave_scores_ref(qs, rs, gap_open=go, gap_extend=ge,
                                affine=affine)
+
+
+#: the X-drop margin that stands for "no drop" (``x=None``): no run of
+#: BLOSUM62 scores over sequences the kernels take falls 2^30 below its best
+NO_XDROP = 1 << 30
+
+
+def ungapped_wave_scores(qs, rs, *, x: int | None) -> torch.Tensor:
+    """Batched ungapped X-drop prefilter scores (B,) int32 of a
+    (B, Lq) x (B, Lr) pair block (kernel K4); ``x=None`` is no drop."""
+    x = NO_XDROP if x is None else min(int(x), NO_XDROP)
+    if _on_cuda(qs, rs):
+        from .sw import ungapped_scores
+        return _launch("ungapped_scores", ungapped_scores, qs, rs, x=x)
+    return ref.ungapped_scores_ref(qs, rs, x)
+
+
+def sw_rowwave_scores(qs, rs) -> torch.Tensor:
+    """Batched row-wave linear-gap SW best scores (B,) int32 of a
+    (B, Lq) x (B, Lr) pair block (kernel K7)."""
+    from ..align.smith_waterman import GAP
+    if _on_cuda(qs, rs):
+        from .sw import sw_rowwave
+        return _launch("sw_rowwave", sw_rowwave, qs, rs, gap=GAP)
+    return ref.sw_rowwave_ref(qs, rs, gap=GAP)
+
+
+def emit_upper_pairs(offs_s, ids_s, *, cap: int) -> torch.Tensor:
+    """Band-stacked upper-mask SpGEMM emission: offsets (G, U+1), ids
+    (G, E) -> (G, cap, 2) int32, -1 past each band's true count
+    (kernel K5)."""
+    if _on_cuda(offs_s, ids_s):
+        from .spgemm import upper_pairs
+        return _launch("upper_pairs", upper_pairs,
+                       offs_s.to(torch.int32).contiguous(),
+                       ids_s.to(torch.int32).contiguous(), cap=cap)
+    return ref.upper_pairs_ref(offs_s, ids_s, cap=cap)

@@ -1,16 +1,22 @@
-"""K3 — wavefront Smith-Waterman best scores on the card (``csrc/sw.cu``).
+"""The alignment kernels on the card (``csrc/sw.cu``).
 
-Replaces the TPU kernel ``repro/kernels/sw.py::wave_scores_kernel``, linear
-and affine gaps in one kernel template. The source note in ``csrc/sw.cu``
-gives the bound and the design. The plain twin is
-:func:`repro_torch.kernels.ref.wave_scores_ref`; the routing wrapper is
-:func:`repro_torch.kernels.ops.wavefront_scores`.
+* K3 :func:`wave_scores` — wavefront Smith-Waterman best scores, linear
+  and affine gaps; replaces ``repro/kernels/sw.py::wave_scores_kernel``.
+* K4 :func:`ungapped_scores` — the ungapped X-drop diagonal scan;
+  replaces ``repro/kernels/sw.py::ungapped_scores_kernel``.
+* K7 :func:`sw_rowwave` — row-wave linear-gap Smith-Waterman best scores;
+  replaces ``repro/kernels/sw.py::sw_scores_kernel``.
+
+The source notes in ``csrc/sw.cu`` give each kernel's bound and design.
+The plain twins are in :mod:`repro_torch.kernels.ref`; the routing
+wrappers in :mod:`repro_torch.kernels.ops`.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from . import build
@@ -19,35 +25,82 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 MAX_LQ = 8192       # 256 threads x 32 rows per thread
 
 
-@functools.lru_cache(maxsize=4)
-def _table(device: torch.device) -> torch.Tensor:
-    """The sentinel-baked BLOSUM62 table (21*21,) int32 on ``device``."""
+MAX_LR = 8192       # 256 threads x 32 columns per thread (K7)
+
+
+@functools.lru_cache(maxsize=8)
+def _table(device: torch.device, sentinel: bool = True) -> torch.Tensor:
+    """BLOSUM62 (21*21,) int32 on ``device``: with the PAD row and column
+    at the sentinel (K3), or plain (K4 and K7 mask PAD themselves)."""
     from ..align.gotoh import sentinel_table
-    return torch.as_tensor(sentinel_table().reshape(-1), device=device)
+    from ..core.alphabet import BLOSUM62_PADDED
+    t = sentinel_table() if sentinel else BLOSUM62_PADDED.astype(np.int32)
+    return torch.as_tensor(t.reshape(-1), device=device)
+
+
+def _check_pair_block(name: str, qs: torch.Tensor, rs: torch.Tensor):
+    """(B, Lq, Lr) of an int8 (B, Lq) x (B, Lr) pair block, contiguous on
+    one device with Lq, Lr >= 1; raises on anything else."""
+    if qs.dtype != torch.int8 or rs.dtype != torch.int8:
+        raise TypeError(f"{name} takes int8 residues")
+    if qs.dim() != 2 or rs.dim() != 2 or qs.shape[0] != rs.shape[0]:
+        raise ValueError(f"{name} shapes {tuple(qs.shape)} x "
+                         f"{tuple(rs.shape)} do not pair up")
+    if not (qs.is_contiguous() and rs.is_contiguous()):
+        raise ValueError(f"{name} takes contiguous operands")
+    if qs.device != rs.device:
+        raise ValueError(f"{name} operands must share one device")
+    B, Lq = qs.shape
+    Lr = rs.shape[1]
+    if Lq < 1 or Lr < 1:
+        raise ValueError(f"{name} takes Lq, Lr >= 1, got {Lq}, {Lr}")
+    return B, Lq, Lr
 
 
 def wave_scores(qs: torch.Tensor, rs: torch.Tensor, *, gap_open: int,
                 gap_extend: int, affine: bool) -> torch.Tensor:
     """Launch K3: qs (B, Lq), rs (B, Lr) int8 residues, contiguous on one
     CUDA device -> (B,) int32 best local scores."""
-    if qs.dtype != torch.int8 or rs.dtype != torch.int8:
-        raise TypeError("wave_scores takes int8 residues")
-    if qs.dim() != 2 or rs.dim() != 2 or qs.shape[0] != rs.shape[0]:
-        raise ValueError(f"wave_scores shapes {tuple(qs.shape)} x "
-                         f"{tuple(rs.shape)} do not pair up")
-    B, Lq = qs.shape
-    Lr = rs.shape[1]
-    if not (1 <= Lq <= MAX_LQ and Lr >= 1):
-        raise ValueError(f"wave_scores takes 1 <= Lq <= {MAX_LQ} and "
-                         f"Lr >= 1, got Lq={Lq}, Lr={Lr}")
-    if not (qs.is_contiguous() and rs.is_contiguous()):
-        raise ValueError("wave_scores takes contiguous operands")
-    if qs.device != rs.device:
-        raise ValueError("wave_scores operands must share one device")
+    B, Lq, Lr = _check_pair_block("wave_scores", qs, rs)
+    if Lq > MAX_LQ:
+        raise ValueError(f"wave_scores takes Lq <= {MAX_LQ}, got {Lq}")
     out = torch.empty((B,), dtype=torch.int32, device=qs.device)
     fn = build.function("sw", "wave_scores",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
     build.launch(fn, qs.device, qs.data_ptr(), rs.data_ptr(),
                  _table(qs.device).data_ptr(), out.data_ptr(), B, Lq, Lr,
                  int(gap_open), int(gap_extend), int(bool(affine)))
+    return out
+
+
+def ungapped_scores(qs: torch.Tensor, rs: torch.Tensor, *,
+                    x: int) -> torch.Tensor:
+    """Launch K4: qs (B, Lq), rs (B, Lr) int8 residues, contiguous on one
+    CUDA device -> (B,) int32 best ungapped X-drop run scores; ``x`` is
+    the drop margin (2^30 for none)."""
+    B, Lq, Lr = _check_pair_block("ungapped_scores", qs, rs)
+    out = torch.empty((B,), dtype=torch.int32, device=qs.device)
+    fn = build.function("sw", "ungapped_scores",
+                        [_P, _P, _P, _P, _I, _I, _I, _I, _P])
+    build.launch(fn, qs.device, qs.data_ptr(), rs.data_ptr(),
+                 _table(qs.device, False).data_ptr(), out.data_ptr(), B, Lq,
+                 Lr, int(x))
+    return out
+
+
+def sw_rowwave(qs: torch.Tensor, rs: torch.Tensor, *,
+               gap: int) -> torch.Tensor:
+    """Launch K7: qs (B, Lq), rs (B, Lr) int8 residues, contiguous on one
+    CUDA device -> (B,) int32 linear-gap SW best scores (``gap`` < 0)."""
+    B, Lq, Lr = _check_pair_block("sw_rowwave", qs, rs)
+    if Lr > MAX_LR:
+        raise ValueError(f"sw_rowwave takes Lr <= {MAX_LR}, got {Lr}")
+    if gap >= 0:
+        raise ValueError("sw_rowwave takes a negative gap penalty")
+    out = torch.empty((B,), dtype=torch.int32, device=qs.device)
+    fn = build.function("sw", "sw_rowwave",
+                        [_P, _P, _P, _P, _I, _I, _I, _I, _P])
+    build.launch(fn, qs.device, qs.data_ptr(), rs.data_ptr(),
+                 _table(qs.device, False).data_ptr(), out.data_ptr(), B, Lq,
+                 Lr, int(gap))
     return out

@@ -238,16 +238,24 @@ def test_flip_layout_names_the_slice_it_waits_for():
                layout="flip", device="cpu")
 
 
-def test_rowwave_on_cuda_names_k7():
-    """The route check fires before any launch, so a CPU tensor that
-    reports ``is_cuda`` stands in for a CUDA one here."""
-    from repro_torch.align.smith_waterman import dp_scores_block
+def test_rowwave_on_cuda_names_k7(monkeypatch):
+    """``dp_kernel="rowwave"`` on CUDA operands launches kernel K7. With no
+    card here, the device check answers CUDA and a stand-in takes the
+    launch, so the test sees what the router hands the kernel."""
+    from repro_torch.align.smith_waterman import GAP, dp_scores_block
+    from repro_torch.kernels import ops, sw
+    seen = []
+
+    def fake_k7(qs, rs, *, gap):
+        seen.append((qs.shape, rs.shape, gap))
+        return torch.zeros(qs.shape[0], dtype=torch.int32)
+
+    monkeypatch.setattr(ops, "_on_cuda", lambda *t: True)
+    monkeypatch.setattr(sw, "sw_rowwave", fake_k7)
+    ops.reset_launches()
     q = torch.zeros((1, 4), dtype=torch.int8)
-
-    class _Cuda(torch.Tensor):
-        @property
-        def is_cuda(self):
-            return True
-
-    with pytest.raises(NotImplementedError, match="K7"):
-        dp_scores_block(q.as_subclass(_Cuda), q, dp_kernel="rowwave")
+    dp_scores_block(q, torch.zeros((1, 6), dtype=torch.int8),
+                    dp_kernel="rowwave")
+    assert seen == [((1, 4), (1, 6), GAP)]
+    assert ops.LAUNCHES["sw_rowwave"] == 1
+    ops.reset_launches()

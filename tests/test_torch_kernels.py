@@ -1,5 +1,6 @@
-"""The port's kernels (K1 siggen, K2 dense Hamming, K3 wavefront SW) against
-the JAX reference.
+"""The port's kernels (K1 siggen, K2 dense Hamming, K3 wavefront SW, K4
+ungapped X-drop, K7 row-wave SW) against the JAX reference (K5's twin is
+held against its Pallas kernel in ``tests/test_torch_spgemm.py``).
 
 On the CPU each wrapper in ``repro_torch.kernels.ops`` runs its kernel's
 plain twin; those twins are held here against the JAX Pallas kernels (in
@@ -170,11 +171,67 @@ def test_rowwave_matches_reference_rowwave():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+# ------------------------------------------------------------ K7 row wave
+@pytest.mark.parametrize("B,Lq,Lr", [(5, 17, 23), (4, 24, 9)])
+def test_rowwave_twin_matches_pallas_kernel(B, Lq, Lr):
+    qs, rs = _pairs(B, Lq, Lr, B * 10 + Lr)
+    want = np.asarray(j_ops.sw_wave_scores(qs, rs, bb=4, interpret=True))
+    got = ops.sw_rowwave_scores(torch.from_numpy(qs), torch.from_numpy(rs))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ------------------------------------------------------------ K4 ungapped
+@pytest.mark.parametrize("x", [None, 10, 0])
+@pytest.mark.parametrize("B,Lq,Lr", [(5, 17, 23), (4, 24, 9)])
+def test_ungapped_twin_matches_pallas_kernel(x, B, Lq, Lr):
+    """The Pallas kernel takes x=2^30 for no drop (``tiles.py``); the
+    reference's jnp scan takes None. The twin matches both."""
+    from repro.align.smith_waterman import ungapped_xdrop_scores
+    qs, rs = _pairs(B, Lq, Lr, B * 100 + Lr)
+    want = np.asarray(j_ops.ungapped_wave_scores(
+        qs, rs, x=2**30 if x is None else x, bb=4, interpret=True))
+    np.testing.assert_array_equal(
+        np.asarray(ungapped_xdrop_scores(qs, rs, x=x)), want)
+    got = ops.ungapped_wave_scores(torch.from_numpy(qs),
+                                   torch.from_numpy(rs), x=x)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got[-1] == 0                        # the all-PAD row
+
+
+def test_ungapped_twin_matches_host_oracle():
+    """Unpadded pairs walked cell by cell by the reference's host oracle;
+    the twin sees them inside a PAD-padded block."""
+    rng = np.random.default_rng(5)
+    B, L = 6, 40
+    qs = np.full((B, L), PAD, np.int8)
+    rs = np.full((B, L), PAD, np.int8)
+    pairs = []
+    for n in range(B):
+        lq, lr = rng.integers(1, L + 1, 2)
+        q = rng.integers(0, 20, lq).astype(np.int8)
+        r = q[:lr].copy() if n % 2 else rng.integers(0, 20, lr).astype(
+            np.int8)
+        qs[n, :len(q)], rs[n, :len(r)] = q, r
+        pairs.append((q, r))
+    for x in (3, 2**30):
+        want = [j_ref.ungapped_xdrop_ref(q, r, x) for q, r in pairs]
+        got = ops.ungapped_wave_scores(torch.from_numpy(qs),
+                                       torch.from_numpy(rs), x=x)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
 # ------------------------------------------------------------ routing
 def test_cpu_tensors_run_the_twins_and_count_no_launch():
     ops.reset_launches()
     qs, rs = _pairs(2, 8, 8, 0)
-    ops.wavefront_scores(torch.from_numpy(qs), torch.from_numpy(rs))
+    q8, r8 = torch.from_numpy(qs), torch.from_numpy(rs)
+    ops.wavefront_scores(q8, r8)
+    ops.ungapped_wave_scores(q8, r8, x=None)
+    ops.sw_rowwave_scores(q8, r8)
+    ops.emit_upper_pairs(torch.tensor([[0, 2]]), torch.tensor([[0, 1]]),
+                         cap=2)
     q = torch.zeros((2, 1), dtype=torch.int32)
     ops.all_pairs_hamming(q, q)
     assert all(v == 0 for v in ops.LAUNCHES.values())
