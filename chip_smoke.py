@@ -15,10 +15,22 @@ Phases, any failure exits non-zero:
               every 64-query batch timed on its own; the within-d
               neighbours must agree between the modes and with a
               brute-force sweep of K2's plain twin.
-3. siggen   — the index of NC_000913 scale (4,146 refs, mean length 316)
+3. search   — job 2 at the paper's metagenomic scale: 547,169 queries of
+              mean length 81 (``DATASETS["227_01_prot"]``, a quarter of
+              them homolog fragments) against the Swiss-Prot refs of
+              phase 2 (the same index): ``QueryEngine.search_pairs`` with
+              the flip, band and dense joins (the dense count through
+              kernel K6, its emission through K2), then one timed
+              ``ScalLoPS.search`` per join; the joins must give one count
+              and one (q, r, dist) set, every dist must equal the popcount
+              and K6's counts must sum to the dense count; then d=0 and
+              d=2, the paper's own ``perf_config()`` (java hash, d=0, flip;
+              a query prefix if its pairs do not fit), and the flip-layout
+              index serving phase 2's queries.
+4. siggen   — the index of NC_000913 scale (4,146 refs, mean length 316)
               built with ``siggen_method="matmul"`` (kernel K1) must carry
               the same signatures as the table path.
-4. allpairs — the all-vs-all path at myva scale (192,987 sequences, mean
+5. allpairs — the all-vs-all path at myva scale (192,987 sequences, mean
               length 305, planted families of 4): ``all_pairs_search``
               on the card (join through K5, ungapped prefilter K4,
               Smith-Waterman K3), timed by stage; the card's join must
@@ -27,24 +39,27 @@ Phases, any failure exits non-zero:
               give the wavefront's scores; and ``all_pairs_ingest`` of the
               last 4,096 rows onto a run over the rest must give the full
               run's family labels.
-5. joins    — the self-join's two routes (keyed dup-free and sort-dedup)
+6. joins    — the self-join's two routes (keyed dup-free and sort-dedup)
               on the first 40,000 myva rows, where both apply: the same
               pairs, each route timed.
-6. kernels  — every kernel held exactly against its plain torch twin and
+7. kernels  — every kernel held exactly against its plain torch twin and
               timed on the card alone (its launches captured in one CUDA
               graph): on the inputs the main paths gave it first, and K4
-              and K7 on one full wave of their most used shape.
-7. small    — a 2,000-ref index served, and a 2,000-sequence corpus
+              and K7 on one full wave of their most used shape; K2 and K6
+              also against ``torch.cdist(p=0)`` on unpacked bits.
+8. small    — a 2,000-ref index served, and a 2,000-sequence corpus
               clustered by ``all_pairs_search`` (the kernel route above,
-              and the default PID route), on the card and on the CPU (the
-              twins): identical outputs.
+              and the default PID route), ``ScalLoPS.search`` with each
+              join and a flip index's ``topk_probe``, on the card and on
+              the CPU (the twins): identical outputs.
 
 Each path is driven with every launch count set to 0 just before it and
-read just after it: serving (phase 2), the K1 build (phase 3), and in
-phase 4 the timed ``all_pairs_search`` (the all-pairs main path), the row
+read just after it: serving (phase 2), each join's ``search_pairs``
+(phase 3; the dense join's is K6's path), the K1 build (phase 4), and in
+phase 5 the timed ``all_pairs_search`` (the all-pairs main path), the row
 wave over the survivors (K7's path), the base run and the ingest, each on
 its own. The kernel wrappers record their first inputs throughout phases
-2-4. The output ends with the card's ``nvidia-smi`` name and
+2-5. The output ends with the card's ``nvidia-smi`` name and
 power limit, one JSON line of kernels, and the ``ok`` line. Needs one CUDA
 card; imports nothing of JAX.
 """
@@ -67,15 +82,36 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_TC_OPS_PER_S = 1979e12
 CUDA_CORE_OPS_PER_S = 67e12
 
-SWISSPROT = dict(n_refs=454_401, ref_len_mean=373)   # configs/scallops.py
-NC_000913 = dict(n_refs=4_146, ref_len_mean=316)
+# CUDA C++ Programming Guide, arithmetic-instruction throughput for compute
+# capability 9.0, results per clock per SM: 32-bit popcount (__popc) 16;
+# 32-bit integer add, compare and bitwise logic 64. Times the SM count and
+# the card's maximum SM clock (read from nvidia-smi in main()), they bound
+# K6, whose work is popcounts.
+SMS = 132
+POPC_PER_SM_CLK = 16
+INT_ALU_PER_SM_CLK = 64
+SM_CLOCK_HZ = 1.98e9    # replaced by nvidia-smi's clocks.max.sm in main()
 SERVE_PASSES = 50       # timed passes over the 256 queries, per mode
 # myva (configs/scallops.py: 192,987 sequences, mean length 305) as 16,384
 # planted families of 4 plus 127,451 singletons
 MYVA = dict(n_families=16_384, family_size=4, n_singletons=127_451,
             len_mean=305, len_std=80, sub_rate=0.1, seed=0)
 INGEST_ROWS = 4_096     # rows the ingest check appends to the rest
+# phase 3: pair capacities. A pair slot of the flip emission holds ~10
+# int64 temporaries (~80 bytes), so 2^28 slots take ~21 GB of the card's
+# 80; the band join's candidate slots (bands x capacity) cost about 48
+# bytes each before the dedup sort.
+PAIR_BUDGET = 1 << 28
+BAND_SLOT_BUDGET = 1 << 29
+MAX_GROW = 1 << 28      # search_pairs' capacity limit in phase 3
 JOIN_ROUTE_ROWS = 40_000  # <= PACKED_KEY_MAX_ID: both pack routes apply
+
+
+def _dataset(name: str) -> dict:
+    """Size and mean length of one of the paper's datasets
+    (``repro_torch/configs/scallops.py``, Tables 5.1/5.2)."""
+    from repro_torch.configs.scallops import DATASETS
+    return DATASETS[name]
 
 
 def _fail(msg: str) -> int:
@@ -146,11 +182,12 @@ def phase_serve(torch, ops, dev, log):
     from repro_torch.index.store import SignatureIndex
     from repro_torch.kernels.ref import hamming_dist_ref
 
+    sp = _dataset("swissprot")
     t0 = time.perf_counter()
     data = make_protein_sets(SyntheticProteinConfig(
-        n_refs=SWISSPROT["n_refs"], ref_len_mean=SWISSPROT["ref_len_mean"],
+        n_refs=sp["n"], ref_len_mean=sp["avg_len"],
         ref_len_std=80, n_homolog_queries=128, n_decoy_queries=128, seed=0))
-    log(f"[serve] data: {SWISSPROT['n_refs']} refs x "
+    log(f"[serve] data: {sp['n']} refs x "
         f"{data['ref_ids'].shape[1]} padded residues, "
         f"{len(data['query_lens'])} queries, generated in "
         f"{time.perf_counter() - t0:.1f} s on the host")
@@ -249,7 +286,242 @@ def phase_serve(torch, ops, dev, log):
     log(f"[serve] within-d neighbours agree in both modes for all "
         f"{len(ql)} queries ({n_hits} neighbours); {checked} queries "
         f"match the brute-force set exactly")
-    return build_s
+    return index, data, out["probe"]
+
+
+def _pair_rows(torch, res, R):
+    """Valid rows of a search result, sorted by (q, r): (keys q*R + r
+    int64, dists int64), and their count checked against ``res.count``."""
+    p = res.pairs[res.pairs[:, 0] >= 0].long()
+    keys, order = torch.sort(p[:, 0] * R + p[:, 1])
+    if len(keys) != int(res.count):
+        raise AssertionError(f"{len(keys)} valid rows but count "
+                             f"{int(res.count)}")
+    if len(keys) > 1 and not bool((keys[1:] != keys[:-1]).all()):
+        raise AssertionError("a pair appears twice in one buffer")
+    return keys, p[order, 2]
+
+
+def _check_dists(torch, keys, dists, q_sigs, r_sigs, d):
+    """Every emitted dist is the popcount of its pair's signatures (plain
+    torch, not a kernel) and at most d."""
+    from repro_torch.core.hamming import hamming_distance
+    R = r_sigs.shape[0]
+    step = 1 << 25
+    for i in range(0, len(keys), step):
+        k = keys[i:i + step]
+        want = hamming_distance(q_sigs[k // R], r_sigs[k % R])
+        if not torch.equal(want.long(), dists[i:i + step]):
+            raise AssertionError("an emitted dist differs from the popcount")
+    if len(dists) and int(dists.max()) > d:
+        raise AssertionError(f"an emitted pair lies beyond d={d}")
+
+
+def _band_candidates(torch, q, r, f, bands):
+    """Candidates per band of ``band_join`` (queries x refs sharing the
+    band key), counted without emitting them."""
+    from repro_torch.core.join import band_keys
+    qk = band_keys(q, f, bands).T.contiguous()
+    rk = band_keys(r, f, bands).T.contiguous()
+    out = []
+    for b in range(bands):
+        rks = torch.sort(rk[b]).values
+        out.append(int((torch.searchsorted(rks, qk[b], right=True)
+                        - torch.searchsorted(rks, qk[b])).sum()))
+    return out
+
+
+def _timed_search(torch, sl, q, r, mp):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sl.search(q, r, max_pairs=mp)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def phase_search(torch, ops, dev, index, serve_data, serve_probe, log):
+    """Job 2 at the metagenomic scale against the Swiss-Prot index of
+    phase 2. Returns the dense join's ``search_pairs`` launches (K6's
+    path)."""
+    from repro_torch.configs.scallops import perf_config
+    from repro_torch.core.pipeline import ScalLoPS
+    from repro_torch.data.synthetic import (SyntheticProteinConfig,
+                                            make_protein_sets)
+    from repro_torch.index.service import QueryEngine, ServingConfig
+    from repro_torch.index.store import SignatureIndex
+    from repro_torch.util import next_pow2
+
+    sp, meta = _dataset("swissprot"), _dataset("227_01_prot")
+    n_hom = meta["n"] // 4        # benchmarks/performance.py's split
+    t0 = time.perf_counter()
+    data = make_protein_sets(SyntheticProteinConfig(
+        n_refs=sp["n"], ref_len_mean=sp["avg_len"], ref_len_std=80,
+        n_homolog_queries=n_hom, n_decoy_queries=meta["n"] - n_hom,
+        query_len_mean=meta["avg_len"], seed=0))
+    gen_s = time.perf_counter() - t0
+    if not (np.array_equal(data["ref_ids"], serve_data["ref_ids"])
+            and np.array_equal(data["ref_lens"], serve_data["ref_lens"])):
+        raise AssertionError("the search refs differ from the serving refs")
+    qi, ql = data["query_ids"], data["query_lens"]
+    del data
+    Q, R = len(ql), index.size
+    log(f"[search] data: {Q} queries (mean length {ql.mean():.1f}; {n_hom} "
+        f"homolog fragments, {Q - n_hom} decoys) x the serving index's "
+        f"{R} refs (the same arrays), generated in {gen_s:.1f} s on the "
+        f"host")
+    cfg = index.cfg
+    r_sigs = index.device_sigs
+    runs, launches = {}, {}
+    for join in ("flip", "band", "dense"):
+        jcfg = replace(cfg, join_method=join)
+        eng = QueryEngine(SignatureIndex(jcfg, index.sigs, index.valid,
+                                         device=dev))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q_sigs = eng.sl.signatures(qi, ql)
+        q_valid = eng.sl.feature_counts(qi, ql) > 0
+        torch.cuda.synchronize()
+        job1_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res, lw = _window(torch, ops, lambda: eng.search_pairs(
+            qi, ql, max_grow=MAX_GROW))
+        pairs_s = time.perf_counter() - t0
+        if bool(res.overflowed):
+            raise AssertionError(f"{join}: search_pairs still overflowed at "
+                                 f"max_pairs {res.pairs.shape[0]}")
+        mp = res.pairs.shape[0]
+        raw, join_s = _timed_search(torch, eng.sl, q_sigs, r_sigs, mp)
+        if bool(raw.overflowed):
+            raise AssertionError(f"{join}: the unmasked join overflowed")
+        runs[join] = (_pair_rows(torch, res, R), _pair_rows(torch, raw, R))
+        launches[join] = lw
+        log(f"[search] d={cfg.d} {join}: job 1 on the queries {job1_s:.3f}"
+            f" s; search_pairs {pairs_s:.3f} s ({int(res.count)} pairs "
+            f"after the validity masks, max_pairs reached {mp}, "
+            f"{(mp // cfg.max_pairs).bit_length() - 1} retries); "
+            f"ScalLoPS.search on the prepared signatures at that capacity "
+            f"{join_s:.3f} s ({int(raw.count)} pairs); K6/K2 launches in "
+            f"search_pairs {lw['hamming_count']}/{lw['hamming_dist']}")
+    if launches["dense"]["hamming_count"] <= 0:
+        raise AssertionError("the dense join never launched K6")
+    (mkeys, mdist), (keys, dist) = runs["flip"]
+    for join in ("band", "dense"):
+        for (k1, d1), (k2, d2), what in ((runs[join][0], (mkeys, mdist),
+                                          "search_pairs"),
+                                         (runs[join][1], (keys, dist),
+                                          "ScalLoPS.search")):
+            if not (torch.equal(k1, k2) and torch.equal(d1, d2)):
+                raise AssertionError(f"{what}: {join} gives {len(k1)} pairs,"
+                                     f" flip {len(k2)}, or other pairs")
+    _check_dists(torch, keys, dist, q_sigs, r_sigs, cfg.d)
+    counts = ops.hamming_counts(q_sigs, r_sigs, cfg.d)
+    if int(counts.long().sum()) != len(keys):
+        raise AssertionError(f"K6 counts sum to {int(counts.long().sum())}, "
+                             f"the dense join found {len(keys)}")
+    log(f"[search] d={cfg.d}: flip, band and dense give one set of "
+        f"{len(keys)} (q, r, dist) pairs ({len(mkeys)} after the masks), "
+        f"none overflowed; every dist equals the popcount; K6's counts sum "
+        f"to the dense count; queries with a pair: "
+        f"{int((counts > 0).sum())}")
+
+    # the paper's d sweep on the same signatures
+    for d in (0, 2):
+        counts = ops.hamming_counts(q_sigs, r_sigs, d).long()
+        n = int(counts.sum())
+        bands = _band_candidates(torch, q_sigs, r_sigs, cfg.f, d + 1)
+        cap = next_pow2(max(n, max(bands), 1))
+        joins = ["flip", "dense"]
+        if (d + 1) * cap <= BAND_SLOT_BUDGET:
+            joins.insert(1, "band")
+        if next_pow2(max(n, 1)) > PAIR_BUDGET:
+            raise AssertionError(f"d={d}: {n} pairs do not fit")
+        found, times = {}, {}
+        for join in joins:
+            sl = ScalLoPS(replace(cfg, d=d, join_method=join), device=dev)
+            mp = cap if join == "band" else next_pow2(max(n, 1))
+            res, times[join] = _timed_search(torch, sl, q_sigs, r_sigs, mp)
+            if bool(res.overflowed):
+                raise AssertionError(f"d={d} {join} overflowed at {mp}")
+            found[join] = _pair_rows(torch, res, R)
+            del res
+        k0, d0 = found["flip"]
+        for join, (k1, d1) in found.items():
+            if not (torch.equal(k0, k1) and torch.equal(d0, d1)):
+                raise AssertionError(f"d={d}: {join} != flip")
+        if len(k0) != n:
+            raise AssertionError(f"d={d}: K6 counts {n}, the joins {len(k0)}")
+        _check_dists(torch, k0, d0, q_sigs, r_sigs, d)
+        log(f"[search] d={d}: {n} pairs (K6's count), band candidates per "
+            f"band {bands}; ScalLoPS.search s: "
+            + ", ".join(f"{j} {t:.3f}" for j, t in times.items())
+            + ("" if "band" in joins else
+               f"; band not run: {d + 1} x {cap} candidate slots exceed "
+               f"{BAND_SLOT_BUDGET}")
+            + "; the joins agree and every dist equals the popcount")
+        del found, k0, d0
+    del runs, keys, dist, mkeys, mdist
+
+    # the paper's performance point: java hash, d=0, flip
+    pcfg = perf_config()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    jidx = SignatureIndex.build(pcfg, serve_data["ref_ids"],
+                                serve_data["ref_lens"], device=dev)
+    jr = jidx.device_sigs
+    jq = ScalLoPS(pcfg, device=dev).signatures(qi, ql)
+    torch.cuda.synchronize()
+    sig_s = time.perf_counter() - t0
+    counts = ops.hamming_counts(jq, jr, 0).long()
+    n = int(counts.sum())
+    nq = Q
+    if n > PAIR_BUDGET:
+        nq = int(torch.searchsorted(torch.cumsum(counts, 0),
+                                    torch.tensor(PAIR_BUDGET, device=dev),
+                                    right=True))
+    n_cut = int(counts[:nq].sum())
+    res, join_s = _timed_search(torch, ScalLoPS(pcfg, device=dev), jq[:nq],
+                                jr, next_pow2(max(n_cut, 1)))
+    if bool(res.overflowed) or int(res.count) != n_cut:
+        raise AssertionError(f"perf_config: {int(res.count)} pairs, K6 "
+                             f"counted {n_cut}")
+    k, dd = _pair_rows(torch, res, R)
+    _check_dists(torch, k, dd, jq, jr, 0)
+    del res, k, dd
+    log(f"[search] perf_config() (java, k=3, T=13, d=0, flip): job 1 on "
+        f"refs and queries {sig_s:.3f} s; {torch.unique(jr).numel()} "
+        f"distinct ref signatures of {R}, {torch.unique(jq).numel()} of "
+        f"{Q} queries; K6 counts {n} pairs over all {Q} queries"
+        + (f"; above the {PAIR_BUDGET}-pair budget, so the join ran on the "
+           f"first {nq} queries ({n_cut} pairs)" if nq < Q else "")
+        + f"; flip join {join_s:.3f} s, every pair at distance 0")
+    del jidx, jr, jq, counts
+
+    # the flip layout under serving: phase 2's queries against a flip index
+    # of the same refs; the within-d neighbours must be the band index's
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fidx = SignatureIndex(cfg, index.sigs, index.valid, layout="flip",
+                          device=dev)
+    fidx.partition(1).device_slabs()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    eng = QueryEngine(fidx, ServingConfig(k=10, max_batch=64, mode="probe"))
+    sq, sl_ = serve_data["query_ids"], serve_data["query_lens"]
+    t0 = time.perf_counter()
+    nid, nd = eng.query_batch(sq, sl_)
+    serve_s = time.perf_counter() - t0
+    a, b = _within_d(nid, nd, cfg.d), _within_d(*serve_probe, cfg.d)
+    if a != b:
+        bad = sum(x != y for x, y in zip(a, b))
+        raise AssertionError(f"flip index: within-d neighbours differ from "
+                             f"the band index's on {bad} queries")
+    log(f"[search] flip-layout index over the {R} refs: built {build_s:.3f}"
+        f" s ({len(fidx._csr_np[0][2])} keys, {len(fidx._csr_np[0][0])} "
+        f"buckets); {len(sl_)} serving queries in {serve_s:.3f} s: within-d "
+        f"neighbours == the band index's ({sum(map(len, a))})")
+    del fidx, eng
+    torch.cuda.empty_cache()
+    return launches["dense"]
 
 
 def phase_siggen(torch, ops, dev, log):
@@ -258,9 +530,10 @@ def phase_siggen(torch, ops, dev, log):
                                             make_protein_sets)
     from repro_torch.index.store import SignatureIndex
 
-    n_refs = NC_000913["n_refs"]
+    nc = _dataset("NC_000913")
+    n_refs = nc["n"]
     data = make_protein_sets(SyntheticProteinConfig(
-        n_refs=n_refs, ref_len_mean=NC_000913["ref_len_mean"],
+        n_refs=n_refs, ref_len_mean=nc["avg_len"],
         ref_len_std=80, n_homolog_queries=0, n_decoy_queries=0, seed=0))
     kw = dict(k=3, T=13, f=32, d=1, scheme="splitmix")
     torch.cuda.synchronize()
@@ -354,6 +627,7 @@ def phase_allpairs(torch, ops, dev, log):
     corpus = make_family_corpus(FamilyCorpusConfig(**MYVA))
     ids, lens, truth = corpus["ids"], corpus["lens"], corpus["labels"]
     N = len(lens)
+    assert N == _dataset("myva")["n"]
     log(f"[allpairs] corpus: {N} sequences x {ids.shape[1]} padded "
         f"residues (mean length {lens.mean():.1f}), "
         f"{MYVA['n_families']} planted families of "
@@ -567,6 +841,16 @@ def _bounds(name, args, kw):
         R = r.shape[0]
         nbytes = (Q + R) * nw * 4 + Q * R * 4
         t_ops = 3 * Q * R * nw / CUDA_CORE_OPS_PER_S
+    elif name == "hamming_count":
+        # the work is popcounts: one per (query, ref, word), and an XOR,
+        # a compare and an add beside each on the integer ALUs
+        q, r = args
+        Q, nw = q.shape
+        R = r.shape[0]
+        nbytes = (Q + R) * nw * 4 + Q * 4
+        t_ops = max(Q * R * nw / POPC_PER_SM_CLK,
+                    Q * R * (nw + 2) / INT_ALU_PER_SM_CLK) / (
+                        SMS * SM_CLOCK_HZ)
     elif name == "upper_pairs":
         offs, ids = args
         G, cap = ids.shape[0], kw["cap"]
@@ -596,6 +880,8 @@ KERNELS = {
                           "src/repro/kernels/siggen.py:56"),
     "hamming_dist": ("src/repro_torch/kernels/csrc/hamming.cu",
                      "src/repro/kernels/hamming.py:38"),
+    "hamming_count": ("src/repro_torch/kernels/csrc/hamming.cu",
+                      "src/repro/kernels/hamming.py:75"),
     "wave_scores_linear": ("src/repro_torch/kernels/csrc/sw.cu",
                            "src/repro/kernels/sw.py:165"),
     "wave_scores_affine": ("src/repro_torch/kernels/csrc/sw.cu",
@@ -609,18 +895,73 @@ KERNELS = {
 }
 
 
+def _once(torch, fn):
+    """``fn()`` and its ms, CUDA events around the one call."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _count_twin(q, r, *, d):
+    """K6's twin over query chunks: the twin is row-wise and materializes
+    its (rows, R) distances, so the chunks keep them near 2^27 cells."""
+    import torch
+    from repro_torch.kernels import ref
+    rows = max(1, (1 << 27) // max(r.shape[0], 1))
+    return torch.cat([ref.hamming_count_ref(q[i:i + rows], r, d)
+                      for i in range(0, q.shape[0], rows)])
+
+
+def _library(torch, name, args, kw, got, log):
+    """ms of one torch call that computes the kernel's function —
+    ``torch.cdist(p=0)`` on signatures unpacked to float bits, which counts
+    the differing bits — or None where no single call can; logged with
+    whether it agrees with the kernel."""
+    from repro_torch.core.simhash import unpack_bits
+    if name not in ("hamming_dist", "hamming_count"):
+        return None
+    q, r = args
+    f = 32 * q.shape[1]
+    qb, rb = unpack_bits(q, f).float(), unpack_bits(r, f).float()
+    if name == "hamming_dist":
+        out = torch.cdist(qb, rb, p=0)
+        ms = _timed(torch, lambda: torch.cdist(qb, rb, p=0), 20)
+        log(f"[kernels] hamming_dist library: torch.cdist(p=0) on unpacked "
+            f"bits {ms:.4f} ms, equal to K2: "
+            f"{bool(torch.equal(out.to(torch.int32), got))}")
+        return ms
+    d = kw["d"]
+    rows, n = 2048, min(q.shape[0], 4 * 2048)
+    out, ms = _once(torch, lambda: torch.cat([
+        (torch.cdist(qb[i:i + rows], rb, p=0) <= d).sum(1)
+        for i in range(0, n, rows)]))
+    log(f"[kernels] hamming_count library: no single call — one "
+        f"torch.cdist(p=0) over all {q.shape[0]} x {r.shape[0]} would write "
+        f"{q.shape[0] * r.shape[0] * 4 / 1e9:.1f} GB of float32 distances; "
+        f"cdist plus (<= d).sum(1) over the first {n} queries, "
+        f"{-(-n // rows)} calls of {rows}, took {ms:.1f} ms, equal to K6 "
+        f"there: {bool(torch.equal(out.to(torch.int32), got[:n]))}")
+    return None
+
+
 def phase_kernels(torch, recorded, full, launches, log):
     from repro_torch.kernels import ref
-    from repro_torch.kernels.hamming import hamming_dist
+    from repro_torch.kernels.hamming import hamming_count, hamming_dist
     from repro_torch.kernels.siggen import siggen_accumulate
     from repro_torch.kernels.spgemm import upper_pairs
     from repro_torch.kernels.sw import sw_rowwave, ungapped_scores, \
         wave_scores
 
-    runners = {   # name: (kernel launcher, plain twin, reps, twin reps)
+    runners = {   # name: (kernel launcher, plain twin, reps, twin reps);
+        # twin reps 0: the twin is timed by the one call that checks it
         "siggen_accumulate": (siggen_accumulate, ref.siggen_accumulate_ref,
                               3, 1),
         "hamming_dist": (hamming_dist, ref.hamming_dist_ref, 50, 3),
+        "hamming_count": (hamming_count, _count_twin, 5, 0),
         "wave_scores_linear": (wave_scores, ref.wave_scores_ref, 20, 1),
         "wave_scores_affine": (wave_scores, ref.wave_scores_ref, 20, 1),
         "ungapped_scores": (ungapped_scores, ref.ungapped_scores_ref, 50, 1),
@@ -637,8 +978,7 @@ def phase_kernels(torch, recorded, full, launches, log):
         args = full.get(name, args)
         run, twin, reps, twin_reps = runners[name]
         got = run(*args, **kw)
-        want = twin(*args, **kw)
-        torch.cuda.synchronize()
+        want, once_ms = _once(torch, lambda: twin(*args, **kw))
         if got.shape != want.shape:
             raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
                                  f"twin {tuple(want.shape)}")
@@ -647,11 +987,15 @@ def phase_kernels(torch, recorded, full, launches, log):
         if err != 0:
             raise AssertionError(f"{name} disagrees with its twin: max abs "
                                  f"err {err}")
+        del want
         ms = _graph_ms(torch, lambda: run(*args, **kw), reps)
-        plain_ms = _timed(torch, lambda: twin(*args, **kw), twin_reps)
+        plain_ms = (_timed(torch, lambda: twin(*args, **kw), twin_reps)
+                    if twin_reps else once_ms)
         bound_ms, bound_by = _bounds(name, args, kw)
+        library_ms = _library(torch, name, args, kw, got, log)
         shapes = " x ".join(str(tuple(a.shape)) for a in args)
-        log(f"[kernels] {name} at {shapes}: exact vs twin; kernel "
+        log(f"[kernels] {name} at {shapes}{' ' + json.dumps(kw) if kw else ''}"
+            f": exact vs twin; kernel "
             f"{ms:.4f} ms (device, {reps} launches in one CUDA graph), "
             f"twin {plain_ms:.4f} ms, bound "
             f"{bound_ms * 1e3:.3f} us ({bound_by}), "
@@ -660,7 +1004,9 @@ def phase_kernels(torch, recorded, full, launches, log):
                          replaces=replaces, launches=launches[name],
                          max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by,
-                         library_ms=None))
+                         library_ms=library_ms))
+        del got
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -691,6 +1037,45 @@ def phase_small(torch, dev, log):
             raise AssertionError(f"card and CPU differ in mode={mode}")
     log("[small] 2000 refs, 64 queries, f=64, d=2: card == CPU twins, top-k "
         "ids and distances after re-rank, probe+linear and dense+affine")
+
+    # job 2: ScalLoPS.search with each join (masks on; a capacity that
+    # holds every pair and one that truncates), and a flip index's top-k
+    from repro_torch.core.pipeline import ScalLoPS
+    from repro_torch.index.service import topk_probe
+    scfg = LSHConfig(k=3, T=13, f=32, d=2, scheme="splitmix")
+    sl = ScalLoPS(scfg, device=dev)
+    side = {}
+    for name, ids, lens in (("r", *refs), ("q", data["query_ids"],
+                                           data["query_lens"])):
+        side[name] = (sl.signatures(ids, lens),
+                      sl.feature_counts(ids, lens) > 0)
+    (rs, rv), (qs, qv) = side["r"], side["q"]
+    n_pairs = {}
+    for join in ("flip", "band", "dense"):
+        for mp in (1 << 14, 4):
+            a, b = (ScalLoPS(replace(scfg, join_method=join),
+                             device=w).search(
+                qs.to(w), rs.to(w), max_pairs=mp, q_valid=qv.to(w),
+                r_valid=rv.to(w)) for w in (dev, "cpu"))
+            for what, x, y in zip(a._fields, a, b):
+                if not torch.equal(x.cpu(), y):
+                    raise AssertionError(f"ScalLoPS.search {join} at "
+                                         f"max_pairs {mp}: card and CPU "
+                                         f"differ in {what}")
+            n_pairs[(join, mp)] = (int(b.count), bool(b.overflowed))
+    tk = []
+    for w in (dev, "cpu"):
+        fidx = SignatureIndex(scfg, rs.cpu().numpy().view(np.uint32),
+                              rv.cpu().numpy(), layout="flip", device=w)
+        tk.append([x.cpu() if isinstance(x, torch.Tensor) else x
+                   for x in topk_probe(fidx, qs.to(w), k=10, cap=4)])
+    for x, y in zip(*tk):
+        if not (torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y):
+            raise AssertionError("flip index topk_probe: card and CPU differ")
+    log(f"[small] ScalLoPS.search, 64 queries x 2000 refs, f=32, d=2, with "
+        f"masks: card == CPU twins for every join (pairs, count, "
+        f"overflowed; (count, overflowed) by (join, max_pairs): {n_pairs}); "
+        f"a flip index's topk_probe: card == CPU (cap reached {tk[0][2]})")
 
     from repro_torch.allpairs import AllPairsConfig, all_pairs_search
     from repro_torch.data.synthetic import (FamilyCorpusConfig,
@@ -739,17 +1124,28 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+    global SM_CLOCK_HZ
+    SM_CLOCK_HZ = 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
     log(f"[build] torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"{torch.cuda.get_device_name(0)}")
+        f"{torch.cuda.get_device_name(0)}, max SM clock "
+        f"{SM_CLOCK_HZ / 1e6:.0f} MHz")
     build_s = build.build_all()
     log(f"[build] nvcc sm_90a, {len(build.SOURCES)} sources in parallel: "
         f"{build_s:.2f} s")
 
     ops.RECORDED = {}
-    _, serve_l = _window(torch, ops, lambda: phase_serve(torch, ops, dev,
-                                                         log))
+    (index, serve_data, serve_probe), serve_l = _window(
+        torch, ops, lambda: phase_serve(torch, ops, dev, log))
     log(f"[main] kernel launches on the serving path: "
         f"{json.dumps(serve_l)}")
+    search_l = phase_search(torch, ops, dev, index, serve_data, serve_probe,
+                            log)
+    log(f"[main] kernel launches on the dense join's search_pairs (K6's "
+        f"path): {json.dumps(search_l)}")
+    del index, serve_data, serve_probe
     siggen_l = phase_siggen(torch, ops, dev, log)
     index, res, corpus, pair_l, rowwave_l, full = phase_allpairs(
         torch, ops, dev, log)
@@ -759,8 +1155,10 @@ def main() -> int:
     phase_join_routes(torch, corpus, dev, log)
     del corpus
     # each kernel's count from its own path: K1 the matmul build, K2 and
-    # K3 serving, K4 and K5 the timed all_pairs_search, K7 the row wave
-    launches = {"siggen_accumulate": siggen_l["siggen_accumulate"]}
+    # K3 serving, K6 the dense join, K4 and K5 the timed all_pairs_search,
+    # K7 the row wave
+    launches = {"siggen_accumulate": siggen_l["siggen_accumulate"],
+                "hamming_count": search_l["hamming_count"]}
     launches.update({k: serve_l[k] for k in
                      ("hamming_dist", "wave_scores_linear",
                       "wave_scores_affine")})

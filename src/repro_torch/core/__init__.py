@@ -1,2 +1,2 @@
-"""Job 1 of the search (shingles, neighbours, SimHash) and the pieces of
-job 2 the serving path needs (Hamming distance, band keys)."""
+"""Job 1 of the search (shingles, neighbours, SimHash) and job 2 (Hamming
+distance, the flip, band and dense joins, ``ScalLoPS.search``)."""

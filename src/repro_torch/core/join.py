@@ -1,22 +1,116 @@
-"""Band keys for the pigeonhole banding of the bucket index.
+"""Signature joins — finding (query, reference) pairs within Hamming d.
 
-Split the f signature bits into ``bands >= d+1`` disjoint groups: any pair
-within Hamming distance d agrees exactly on at least one band, so equal
-band keys are the candidate test (``repro/core/join.py``). The flip, band
-and dense joins themselves are not ported yet.
+The joins of ``repro/core/join.py`` on torch (the dense join is
+``core/hamming.py::threshold_pairs``):
+
+* ``flip_join`` — the paper's Algorithms 3+4: every reference emits all
+  C(f, <=d) bit-flips of itself as keys, queries emit their own signature,
+  equal keys collide (a sort plus two searchsorted). Exact, no duplicates.
+  f <= 32.
+* ``band_join`` — pigeonhole banding: split the f bits into
+  ``bands >= d+1`` disjoint groups; any pair within d agrees exactly on at
+  least one band. Per-band equality joins, dedup, exact popcount filter.
+
+Every join returns a fixed-capacity pair buffer (rows past the true count
+are -1) and the true count, so callers can detect overflow and grow.
 
 Keys are int64 tensors holding uint32 values: torch's uint32 has no shifts
 and no ``searchsorted``, and an int32 view would reorder keys >= 2^31.
+Sorts are stable, as ``jnp.argsort`` is, so equal keys keep ascending ids.
 """
 from __future__ import annotations
+
+import functools
+import itertools
 
 import numpy as np
 import torch
 
+from ..util import as_unsigned
 from .hamming import hamming_distance
 from .simhash import unpack_bits
 
 _M32 = 0xFFFFFFFF
+
+
+# ---------------------------------------------------------------- flip join
+@functools.lru_cache(maxsize=8)
+def flip_masks(f: int, d: int) -> np.ndarray:
+    """All XOR masks with popcount <= d, packed: (M, f//32) uint32."""
+    nw = f // 32
+    masks = []
+    for dd in range(d + 1):
+        for comb in itertools.combinations(range(f), dd):
+            m = np.zeros(nw, dtype=np.uint64)
+            for b in comb:
+                m[b // 32] |= np.uint64(1) << np.uint64(b % 32)
+            masks.append(m.astype(np.uint32))
+    return np.stack(masks, axis=0)
+
+
+def _require_rows(name: str, q: torch.Tensor, r: torch.Tensor) -> None:
+    """The reference's flip and band joins fail on an empty side (their
+    clamped gathers have no row to read); the port refuses it plainly."""
+    if q.shape[0] == 0 or r.shape[0] == 0:
+        raise ValueError(f"{name} needs at least one query and one "
+                         f"reference signature, got {q.shape[0]} x "
+                         f"{r.shape[0]}")
+
+
+def _emit_from_ranges(left, counts, sorted_ids, max_pairs: int):
+    """Turn per-query ranges [left, left+counts) over ``sorted_ids`` into a
+    fixed (max_pairs, 2) int32 (qid, rid) buffer. Returns (pairs, total),
+    total a 0-d int64 tensor. Query ids are clamped to [0, Q-1] and range
+    positions to [0, len(sorted_ids)-1] before each gather, as the
+    reference clamps them; slots past the total become -1."""
+    total = counts.sum()
+    offsets = torch.zeros(counts.shape[0] + 1, dtype=torch.int64,
+                          device=counts.device)
+    offsets[1:] = torch.cumsum(counts, 0)
+    slots = torch.arange(max_pairs, dtype=torch.int64, device=counts.device)
+    qid = torch.searchsorted(offsets, slots, right=True) - 1
+    qid = qid.clamp(0, counts.shape[0] - 1)
+    j = slots - offsets[qid]
+    valid = slots < total
+    pos = (left[qid] + j).clamp(0, sorted_ids.shape[0] - 1)
+    rid = sorted_ids[pos]
+    pairs = torch.stack([torch.where(valid, qid, -1),
+                         torch.where(valid, rid.to(torch.int64), -1)],
+                        dim=-1).to(torch.int32)
+    return pairs, total
+
+
+def flip_join(q_sigs: torch.Tensor, r_sigs: torch.Tensor, *, f: int, d: int,
+              max_pairs: int):
+    """Paper-faithful flip join (f <= 32: keys are single 32-bit words).
+
+    Returns (pairs (max_pairs, 3) int32 [qid, rid, dist], count — the true
+    number of pairs, a 0-d int64 tensor). Each query's pairs come in
+    ascending reference id: the stable sort keeps the expansion order
+    ``rid * M + mask`` among equal keys.
+    """
+    if f > 32:
+        raise ValueError("flip_join keys are single 32-bit words (f <= 32; "
+                         "the paper used f=32)")
+    _require_rows("flip_join", q_sigs, r_sigs)
+    dev = r_sigs.device
+    masks = torch.from_numpy(flip_masks(f, d)[:, 0].astype(np.int64)).to(dev)
+    M = masks.shape[0]
+    rk = (as_unsigned(r_sigs[:, 0])[:, None] ^ masks[None, :]).reshape(-1)
+    rk_sorted, order = torch.sort(rk, stable=True)
+    del rk
+    rid_sorted = torch.div(order, M, rounding_mode="floor").to(torch.int32)
+    del order
+    qk = as_unsigned(q_sigs[:, 0])
+    left = torch.searchsorted(rk_sorted, qk)
+    right = torch.searchsorted(rk_sorted, qk, right=True)
+    pairs2, count = _emit_from_ranges(left, right - left, rid_sorted,
+                                      max_pairs)
+    qv, rv = pairs2[:, 0], pairs2[:, 1]
+    dist = hamming_distance(q_sigs[qv.clamp_min(0).long()],
+                            r_sigs[rv.clamp_min(0).long()])
+    dist = torch.where(qv >= 0, dist, -1).to(torch.int32)
+    return torch.cat([pairs2, dist[:, None]], dim=-1), count
 
 
 def band_bit_groups(f: int, bands: int, *, interleave: bool = False):
@@ -168,3 +262,47 @@ def pack_unique_pairs(cand: torch.Tensor, *, out_cap: int, id_bound: int,
     pairs = torch.stack([torch.where(pad, -1, o0),
                          torch.where(pad, -1, ks2 - o0 * stride)], dim=-1)
     return pairs.to(torch.int32), count
+
+
+def band_join(q_sigs: torch.Tensor, r_sigs: torch.Tensor, *, f: int, d: int,
+              max_pairs: int, bands: int | None = None):
+    """Pigeonhole banding join: exact for bands >= d+1, no false negatives.
+
+    Candidates colliding in several bands are deduplicated; all are
+    exact-filtered by packed Hamming distance. Returns (pairs (max_pairs, 3)
+    int32, count — 0-d int64, truncated — 0-d bool): ``truncated`` is True
+    when a band's candidates overran the per-band capacity ``max_pairs``;
+    the pair set and ``count`` itself (taken from the capacity-bounded
+    candidates, as the reference takes it) may then be incomplete.
+    """
+    b = bands if bands is not None else d + 1
+    if b < d + 1:
+        raise ValueError("bands must be >= d+1 for an exact join")
+    _require_rows("band_join", q_sigs, r_sigs)
+    qk = band_keys(q_sigs, f, b).T.contiguous()      # (b, Q)
+    rk = band_keys(r_sigs, f, b).T.contiguous()      # (b, R)
+    cap = max_pairs  # per-band candidate capacity
+    parts = []
+    truncated = torch.zeros((), dtype=torch.bool, device=q_sigs.device)
+    for band in range(b):
+        rks, order = torch.sort(rk[band], stable=True)
+        left = torch.searchsorted(rks, qk[band])
+        right = torch.searchsorted(rks, qk[band], right=True)
+        p2, emitted = _emit_from_ranges(left, right - left,
+                                        order.to(torch.int32), cap)
+        truncated |= emitted > cap
+        parts.append(p2)
+    cand_s, keep = dedup_pairs(torch.cat(parts))     # (b*cap, 2)
+    qv = torch.where(keep, cand_s[:, 0], -1)
+    rv = torch.where(keep, cand_s[:, 1], -1)
+    dist = hamming_distance(q_sigs[qv.clamp_min(0).long()],
+                            r_sigs[rv.clamp_min(0).long()])
+    out, count = compact_pairs((qv, rv, dist), keep & (dist <= d), max_pairs)
+    return out, count, truncated
+
+
+def pairs_to_set(pairs) -> set[tuple[int, int]]:
+    """Host-side helper: valid (q, r) rows of a pair buffer as a set."""
+    arr = (pairs.cpu().numpy() if isinstance(pairs, torch.Tensor)
+           else np.asarray(pairs))
+    return {(int(a), int(b)) for a, b, *_ in arr if a >= 0}

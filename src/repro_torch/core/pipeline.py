@@ -1,11 +1,14 @@
-"""The ScalLoPS pipeline's configuration and job 1 (signature generation).
+"""End-to-end ScalLoPS pipeline: the paper's two MapReduce jobs as one API.
 
     cfg = LSHConfig(k=3, T=13, f=32, d=1, scheme="splitmix")
-    sl = ScalLoPS(cfg)                      # device defaults to the card
-    sigs = sl.signatures(ids, lengths)      # (N, f//32) int32 on the card
+    sl = ScalLoPS(cfg)                          # device defaults to the card
+    ref_sigs = sl.signatures(ref_ids, ref_lens) # job 1: (N, f//32) int32
+    qry_sigs = sl.signatures(qry_ids, qry_lens)
+    pairs, count, overflowed = sl.search(qry_sigs, ref_sigs)   # job 2
 
-Job 2 (``ScalLoPS.search``: the flip, band and dense joins) is not ported
-yet; the bucket index (``repro_torch.index``) serves queries without it.
+``search`` returns a SearchResult: the fixed-capacity pair buffer, the true
+match count, and ``overflowed`` — True when the buffer truncated rows, so
+callers grow capacity and retry instead of silently losing pairs.
 """
 from __future__ import annotations
 
@@ -15,8 +18,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..util import resolve_device
+from ..util import resolve_device, u32_to_i32
 from . import simhash
+from .hamming import threshold_pairs
+from .join import band_join, flip_join
 
 # Host-to-device chunking budget: job 1 runs over row chunks whose
 # intermediates (the (n, S, f) table gather, or the (R, D) K1 operand plus
@@ -50,9 +55,9 @@ class LSHConfig:
 class SearchResult(NamedTuple):
     """Fixed-capacity join result. ``count`` is the true number of matches;
     ``overflowed`` is True iff the buffer truncated rows (grow + retry)."""
-    pairs: torch.Tensor
-    count: torch.Tensor
-    overflowed: torch.Tensor
+    pairs: torch.Tensor         # (capacity, 3) int32, -1 past the stored rows
+    count: torch.Tensor         # () int32 — true match count
+    overflowed: torch.Tensor    # () bool — buffer truncated
 
 
 class ScalLoPS:
@@ -94,3 +99,53 @@ class ScalLoPS:
         if not parts:
             return torch.zeros((0,), dtype=torch.int32, device=self.device)
         return torch.cat(parts)
+
+    # ---- job 2: Signature Processor ----
+    def _on_device(self, x, dtype=None) -> torch.Tensor:
+        """A tensor on the pipeline's device; numpy signatures (uint32)
+        become int32 bit patterns, numpy masks bool tensors."""
+        if not isinstance(x, torch.Tensor):
+            x = (u32_to_i32(x) if dtype is None
+                 else torch.from_numpy(np.asarray(x, dtype)))
+        return x.to(self.device).contiguous()
+
+    def search(self, q_sigs, r_sigs, *, max_pairs: int | None = None,
+               q_valid=None, r_valid=None) -> SearchResult:
+        """Join the signature sets. q_valid/r_valid: optional bool masks —
+        pairs touching invalid (zero-feature) sequences are dropped, per
+        the paper's non-zero-signature rule. Check ``overflowed`` before
+        trusting the pair buffer to be complete.
+
+        Counts are int64 inside, so ``overflowed`` holds past 2^31 matches;
+        ``count`` comes back int32, the reference's type."""
+        cfg = self.cfg
+        mp = max_pairs or cfg.max_pairs
+        q = self._on_device(q_sigs)
+        r = self._on_device(r_sigs)
+        truncated = torch.zeros((), dtype=torch.bool, device=self.device)
+        if cfg.join_method == "flip":
+            pairs, count = flip_join(q, r, f=cfg.f, d=cfg.d, max_pairs=mp)
+        elif cfg.join_method == "band":
+            # band_join's count comes from capacity-bounded candidates, so
+            # it can undercount once a band overran; truncated covers that
+            pairs, count, truncated = band_join(q, r, f=cfg.f, d=cfg.d,
+                                                max_pairs=mp)
+        elif cfg.join_method == "dense":
+            pairs, count = threshold_pairs(q, r, cfg.d, mp)
+        else:
+            raise ValueError(f"unknown join_method {cfg.join_method!r}")
+        # overflow is judged on the raw join count: once the buffer
+        # truncates, any downstream count (the masked one too) undercounts
+        overflowed = (count > mp) | truncated
+        if q_valid is not None or r_valid is not None:
+            qv = (self._on_device(q_valid, bool) if q_valid is not None
+                  else torch.ones(q.shape[0], dtype=torch.bool,
+                                  device=self.device))
+            rv = (self._on_device(r_valid, bool) if r_valid is not None
+                  else torch.ones(r.shape[0], dtype=torch.bool,
+                                  device=self.device))
+            ok = ((pairs[:, 0] >= 0) & qv[pairs[:, 0].clamp_min(0).long()]
+                  & rv[pairs[:, 1].clamp_min(0).long()])
+            pairs = torch.where(ok[:, None], pairs, -1)
+            count = ok.sum()
+        return SearchResult(pairs, count.to(torch.int32), overflowed)

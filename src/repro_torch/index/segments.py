@@ -6,9 +6,9 @@ whole index is a stable linear merge of the segment CSRs
 (:func:`merge_band_csrs`), bit-exact with a from-scratch build.
 
 As in the reference (``repro/index/segments.py``), the CSR arrays are host
-numpy: keys uint32, offsets int32, ids int32. Only the band keys of a new
-segment are computed with torch, on the index's device. Manifest
-persistence is not ported yet.
+numpy: keys uint32, offsets int32, ids int32. Only the keys of a new
+segment (band keys, or flip keys) are computed with torch, on the index's
+device. Manifest persistence is not ported yet.
 """
 from __future__ import annotations
 
@@ -17,8 +17,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..core.join import band_keys
-from ..util import u32_to_i32
+from ..core.join import band_keys, flip_masks
+from ..util import as_unsigned, u32_to_i32
 
 
 @dataclasses.dataclass
@@ -53,16 +53,22 @@ def _empty_csr():
 def build_segment(sigs, valid, base: int, *, layout: str, f: int, d: int,
                   bands: int, interleave: bool, key_hash: str,
                   device=torch.device("cpu")) -> Segment:
-    """Seal a segment: bucket its rows under the index's banding config.
-    Band keys are computed on ``device``; the CSR is built on the host."""
-    if layout != "band":
-        raise NotImplementedError(
-            f"layout={layout!r} comes with the job-2 slice of the port; "
-            f"only layout='band' is ported")
+    """Seal a segment: bucket its rows under the index's layout — per-band
+    CSRs of band keys, or one CSR of every row's C(f, <=d) flip keys.
+    Keys are computed on ``device``; the CSR is built on the host."""
     sigs = np.ascontiguousarray(np.asarray(sigs, np.uint32))
     valid = np.asarray(valid, bool).reshape(-1)
     local_ids = np.nonzero(valid)[0].astype(np.int64)
     gids = (local_ids + base).astype(np.int32)
+    if layout == "flip":
+        if len(gids) == 0:
+            return Segment(base, sigs, valid, [_empty_csr()])
+        masks = flip_masks(f, d)[:, 0].astype(np.int64)
+        w0 = as_unsigned(u32_to_i32(sigs[local_ids, 0]).to(device))
+        keys = (w0[:, None] ^ torch.from_numpy(masks).to(device)[None, :])
+        ids = np.repeat(gids, masks.shape[0])
+        return Segment(base, sigs, valid,
+                       [sort_bucket(keys.reshape(-1).cpu().numpy(), ids)])
     if len(gids) == 0:
         return Segment(base, sigs, valid,
                        [_empty_csr() for _ in range(bands)])

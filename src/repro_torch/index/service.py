@@ -19,7 +19,9 @@ Ties: Hamming distances tie constantly, and the reference's
 unique composite key ``dist * 2^32 + slot``, which orders ties by slot —
 ids match the reference bit for bit. Capacity discipline: the probe
 reports overflow when a bucket exceeds the candidate cap, and the engine
-grows the cap and retries.
+grows the cap and retries; the pair-dump path
+(:meth:`QueryEngine.search_pairs`) grows on the ``overflowed`` flag of
+:class:`~repro_torch.core.pipeline.SearchResult` the same way.
 """
 from __future__ import annotations
 
@@ -360,6 +362,24 @@ class QueryEngine:
             return self.cfg.mode
         return "dense" if self.index.size <= self.cfg.dense_threshold \
             else "probe"
+
+    # ------------------------------------------------------------ pair dump
+    def search_pairs(self, q_ids, q_lens, *, max_pairs: int | None = None,
+                     max_grow: int = 1 << 22):
+        """Classic unordered pair dump (``ScalLoPS.search`` with the index
+        config's ``join_method``) against the indexed references, honouring
+        the result's ``overflowed`` flag: capacity doubles and the join
+        retries until nothing is truncated or ``max_grow`` is reached."""
+        q_sigs = self.sl.signatures(q_ids, q_lens)
+        q_valid = self.sl.feature_counts(q_ids, q_lens) > 0
+        mp = max_pairs or self.index.cfg.max_pairs
+        while True:
+            res = self.sl.search(q_sigs, self.index.device_sigs,
+                                 max_pairs=mp, q_valid=q_valid,
+                                 r_valid=self.index.device_valid)
+            if not bool(res.overflowed) or mp >= max_grow:
+                return res
+            mp = min(mp * 2, max_grow)  # grow-and-retry
 
     # ------------------------------------------------------------ rerank
     def _rerank(self, ids, lens, nid, nd):

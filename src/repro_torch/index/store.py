@@ -1,18 +1,23 @@
 """Signature index over a reference database — built once, grown forever.
 
-The port of ``repro/index/store.py`` for ``layout="band"``:
+The port of ``repro/index/store.py``:
 
 * packed signatures ``sigs`` (N, f//32) uint32 on the host, mirrored on the
   device as int32 bit patterns — job 1's output;
 * ``valid`` (N,) bool — the paper's non-zero-signature rule (§5.2);
-* per-band sorted buckets in CSR form over band keys with ``bands >= d+1``
-  (the pigeonhole guarantee: a probe of all bands has no false negatives
-  within Hamming d).
+* sorted buckets in CSR form, in one of two layouts:
+
+  - ``layout="band"`` (default): one table per band of band keys with
+    ``bands >= d+1`` (the pigeonhole guarantee: a probe of all bands has no
+    false negatives within Hamming d);
+  - ``layout="flip"``: the paper's expansion — every reference emits all
+    C(f, <=d) bit-flips (``core/join.py::flip_masks``) as keys and queries
+    probe with their raw signature; one table, exact, no duplicate
+    candidates. f <= 32.
 
 Growth is append-only: ``add()`` seals a new segment, the merged bucket
 table is a stable linear merge materialized lazily, ``compact()`` folds
-the segments into one. ``layout="flip"``, save/load and crash recovery
-are not ported yet.
+the segments into one. Save/load and crash recovery are not ported yet.
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ import torch
 from ..core.join import band_keys
 from ..core.pipeline import LSHConfig, ScalLoPS
 from ..obs import span
-from ..util import i32_to_u32, resolve_device, u32_to_i32
+from ..util import as_unsigned, i32_to_u32, resolve_device, u32_to_i32
 from . import segments as seglib
 from .segments import Segment
 
@@ -74,12 +79,10 @@ class SignatureIndex:
                  *, layout: str = "band", bands: int | None = None,
                  interleave: bool = True, key_hash: str = "splitmix",
                  n_shards: int = 1, device=None):
-        if layout == "flip":
-            raise NotImplementedError(
-                "layout='flip' comes with the job-2 slice of the port "
-                "(flip masks and flip_join); use layout='band'")
-        if layout != "band":
+        if layout not in ("band", "flip"):
             raise ValueError(f"unknown index layout {layout!r}")
+        if layout == "flip" and cfg.f > 32:
+            raise ValueError("flip layout needs f <= 32 (paper used f=32)")
         if key_hash not in ("splitmix", "none"):
             raise ValueError(f"unknown key_hash {key_hash!r}")
         if n_shards < 1:
@@ -89,9 +92,10 @@ class SignatureIndex:
         self.device = resolve_device(device)
         self.n_shards = int(n_shards)
         self.interleave = bool(interleave)
-        self.key_hash = key_hash
+        # flip keys are the raw signature words: no key hash
+        self.key_hash = key_hash if layout == "band" else "none"
         self.bands = int(bands if bands is not None else max(cfg.d + 1, 1))
-        if self.bands < cfg.d + 1:
+        if layout == "band" and self.bands < cfg.d + 1:
             raise ValueError("bands must be >= d+1 for an exact probe")
         self.sigs = np.ascontiguousarray(np.asarray(sigs, np.uint32))
         self.valid = np.asarray(valid, bool).reshape(-1).copy()
@@ -118,7 +122,7 @@ class SignatureIndex:
 
     @property
     def n_bands(self) -> int:
-        return self.bands
+        return 1 if self.layout == "flip" else self.bands
 
     @property
     def epoch(self) -> int:
@@ -152,7 +156,9 @@ class SignatureIndex:
         every band, on the device. A sequence occupies exactly one bucket
         per band, so a self-join candidate pair is a cross-band duplicate
         iff its two rows agree in an earlier band
-        (``index/spgemm.py::spgemm_join_self_keys``)."""
+        (``index/spgemm.py::spgemm_join_self_keys``). Band layout only."""
+        if self.layout != "band":
+            raise ValueError("band keys are only defined for layout='band'")
         if (self._dev_band_keys is None
                 or self._dev_band_keys.shape[0] != self.size):
             self._dev_band_keys = band_keys(
@@ -258,7 +264,9 @@ class SignatureIndex:
     # ------------------------------------------------------------ probing
     def query_keys(self, q_sigs: torch.Tensor) -> torch.Tensor:
         """Per-band probe keys for a query batch: (n_bands, B) int64
-        holding uint32 values."""
+        holding uint32 values (the raw first word under the flip layout)."""
+        if self.layout == "flip":
+            return as_unsigned(q_sigs.to(self.device)[:, 0])[None, :]
         return band_keys(q_sigs.to(self.device), self.cfg.f, self.bands,
                          interleave=self.interleave,
                          key_hash=self.key_hash).T.contiguous()

@@ -16,7 +16,7 @@ import torch
 from . import ref
 
 #: kernel launches since the last :func:`reset_launches`, by kernel
-LAUNCHES = {"siggen_accumulate": 0, "hamming_dist": 0,
+LAUNCHES = {"siggen_accumulate": 0, "hamming_dist": 0, "hamming_count": 0,
             "wave_scores_linear": 0, "wave_scores_affine": 0,
             "ungapped_scores": 0, "upper_pairs": 0, "sw_rowwave": 0}
 
@@ -71,6 +71,15 @@ def all_pairs_hamming(q, r) -> torch.Tensor:
         from .hamming import hamming_dist
         return _launch("hamming_dist", hamming_dist, q, r)
     return ref.hamming_dist_ref(q, r)
+
+
+def hamming_counts(q, r, d: int) -> torch.Tensor:
+    """Per-query counts of references within Hamming distance ``d``:
+    (Q,) int32 (kernel K6)."""
+    if _on_cuda(q, r):
+        from .hamming import hamming_count
+        return _launch("hamming_count", hamming_count, q, r, d=int(d))
+    return ref.hamming_count_ref(q, r, d)
 
 
 def wavefront_scores(qs, rs, *, gap_mode: str = "linear",

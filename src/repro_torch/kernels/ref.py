@@ -45,6 +45,12 @@ def hamming_dist_ref(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     return hamming_distance(q[:, None, :], r[None, :, :])
 
 
+def hamming_count_ref(q: torch.Tensor, r: torch.Tensor, d: int) -> torch.Tensor:
+    """Twin of K6: (Q, nw) x (R, nw) -> (Q,) int32, the number of refs
+    within Hamming distance ``d`` of each query."""
+    return (hamming_dist_ref(q, r) <= d).sum(1).to(torch.int32)
+
+
 def sw_affine_ref(q, r, gap_open: int = -11, gap_extend: int = -1):
     """Host Gotoh oracle: best local score of one unpadded encoded pair,
     walking every cell with true -inf gap-lane boundaries. Returns

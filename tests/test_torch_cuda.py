@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain torch twins, on the card.
 
 The kernels (K1 siggen, K2 dense Hamming, K3 wavefront SW, K4 ungapped
-X-drop, K5 SpGEMM pair emission, K7 row-wave SW) have no CPU or interpret
-mode, so every test here is marked ``cuda`` and skips where there is no
+X-drop, K5 SpGEMM pair emission, K6 Hamming threshold count, K7 row-wave
+SW) have no CPU or interpret mode, so every test here is marked ``cuda`` and skips where there is no
 card. The file imports no jax, so it also runs on a machine
 with the card and without JAX:
 
@@ -85,6 +85,84 @@ def test_hamming_kernel_matches_twin_on_card(cuda_device):
                                   ref.hamming_dist_ref(q, r).cpu().numpy())
 
 
+def _near(rng, Q, R, nw):
+    """Refs, and queries 0-3 bits from random refs (random words sit
+    ~16*nw bits apart, too far for a small d to count anything)."""
+    r = rng.integers(0, 2**32, (R, nw), dtype=np.uint64).astype(np.uint32)
+    q = r[rng.integers(0, R, Q)].copy()
+    for i in range(Q):
+        for b in range(i % 4):
+            q[i, b % nw] ^= np.uint32(1) << np.uint32((5 * i + b) % 32)
+    return u32_to_i32(q), u32_to_i32(r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,R,nw,d", [
+    (5, 1000, 1, 1),          # Q < 32: the grid splits R to fill the card
+    (64, 454_401, 1, 1),      # a serving batch against Swiss-Prot's size
+    (300, 777, 2, 2),         # R not a multiple of the 256-row tile
+    (1000, 2049, 4, 3),
+    (129, 300, 8, 0),
+    (40, 3000, 1, 40),        # d past f: every ref counts
+])
+def test_count_kernel_matches_twin_on_card(cuda_device, Q, R, nw, d):
+    q, r = _near(np.random.default_rng(Q + R), Q, R, nw)
+    q, r = q.to(cuda_device), r.to(cuda_device)
+    ops.reset_launches()
+    got = ops.hamming_counts(q, r, d)
+    assert ops.LAUNCHES["hamming_count"] == 1
+    want = ops.hamming_counts(q.cpu(), r.cpu(), d)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert int(want.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["flip", "band", "dense"])
+def test_search_card_equals_cpu(cuda_device, method):
+    """ScalLoPS.search with each join on the card and on the CPU (the
+    twins): the same pair buffer, count and overflow flag, with masks, at
+    a capacity that holds every pair and at one that truncates."""
+    from repro_torch.core.pipeline import LSHConfig, ScalLoPS
+    q, r = _near(np.random.default_rng(3), 700, 900, 1)
+    rng = np.random.default_rng(4)
+    qv, rv = rng.random(700) > 0.1, rng.random(900) > 0.1
+    cfg = LSHConfig(f=32, d=2, scheme="splitmix", join_method=method)
+    ops.reset_launches()
+    for mp in (4096, 64):
+        a = ScalLoPS(cfg, device=cuda_device).search(
+            q, r, max_pairs=mp, q_valid=qv, r_valid=rv)
+        b = ScalLoPS(cfg, device="cpu").search(q, r, max_pairs=mp,
+                                               q_valid=qv, r_valid=rv)
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x.cpu().numpy(), y.numpy())
+        assert bool(b.overflowed) == (mp == 64)
+    if method == "dense":
+        assert ops.LAUNCHES["hamming_count"] == 2
+        assert ops.LAUNCHES["hamming_dist"] >= 2
+
+
+@pytest.mark.cuda
+def test_flip_index_topk_card_equals_cpu(cuda_device):
+    from repro_torch.core.pipeline import LSHConfig
+    from repro_torch.data.synthetic import (SyntheticProteinConfig,
+                                            make_protein_sets)
+    from repro_torch.index.service import topk_probe
+    from repro_torch.index.store import SignatureIndex
+    data = make_protein_sets(SyntheticProteinConfig(
+        n_refs=500, n_homolog_queries=40, n_decoy_queries=24,
+        ref_len_mean=120, ref_len_std=30, seed=5))
+    cfg = LSHConfig(f=32, d=2, scheme="splitmix")
+    out = []
+    for where in (cuda_device, "cpu"):
+        idx = SignatureIndex.build(cfg, data["ref_ids"], data["ref_lens"],
+                                   layout="flip", device=where)
+        qs = idx._pipeline.signatures(data["query_ids"], data["query_lens"])
+        out.append([x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+                    for x in topk_probe(idx, qs, k=8, cap=4)])
+    for x, y in zip(*out):
+        np.testing.assert_array_equal(x, y)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("gap_mode", ["linear", "affine"])
 @pytest.mark.parametrize("Lq", [40, 300, 1100])
@@ -103,6 +181,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     q = torch.zeros((4, 9), dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError):          # more than 8 words
         ops.all_pairs_hamming(q, q)
+    with pytest.raises(ValueError):
+        ops.hamming_counts(q, q, 1)
+    with pytest.raises(TypeError):           # int64 signature words
+        ops.hamming_counts(q[:, :2].long(), q[:, :2].long(), 1)
     with pytest.raises(TypeError):           # int64 signature words
         ops.all_pairs_hamming(q.long(), q.long())
     s = torch.zeros((2, 8), dtype=torch.int8, device=cuda_device)

@@ -1,8 +1,9 @@
 """Parity of the port's bucket index and serving path with the JAX
 reference: CSR arrays of ``build``, ``probe`` (candidates and overflow
 flag), the dense and probe top-k through ``index_from_arrays`` (ties
-included), and ``QueryEngine`` end to end with the Smith-Waterman re-rank.
-Exact equality throughout."""
+included), and ``QueryEngine`` end to end with the Smith-Waterman re-rank,
+for the band layout and the paper's flip layout. Exact equality
+throughout."""
 import dataclasses
 
 import numpy as np
@@ -227,15 +228,98 @@ def test_partition_helpers_match_reference():
 def test_fingerprint_matches_reference():
     from repro.index.store import config_fingerprint as j_fp
     for kw in (dict(layout="band", bands=2, key_hash="splitmix"),
-               dict(layout="band", bands=3, interleave=False, n_shards=4)):
+               dict(layout="band", bands=3, interleave=False, n_shards=4),
+               dict(layout="flip", bands=3)):
         assert config_fingerprint(TCfg(**CFG), **kw) == j_fp(JCfg(**CFG),
                                                              **kw)
 
 
-def test_flip_layout_names_the_slice_it_waits_for():
-    with pytest.raises(NotImplementedError, match="job-2"):
-        TIndex(TCfg(), np.zeros((0, 1), np.uint32), np.zeros(0, bool),
+# ------------------------------------------------------------ flip layout
+FLIP_CFG = dict(k=3, T=13, f=32, d=1, scheme="splitmix")
+
+
+@pytest.fixture(scope="module")
+def flip_indexes(corpus):
+    """The flip layout over the same refs: the reference's built from the
+    port's job-1 arrays (one segment), the port's grown in two."""
+    ids, lens = corpus["ref_ids"], corpus["ref_lens"]
+    t = TIndex.build(TCfg(**FLIP_CFG), ids[:130], lens[:130], layout="flip",
+                     device="cpu")
+    t.add(ids[130:], lens[130:])
+    j = JIndex(JCfg(**FLIP_CFG), t.sigs, t.valid, layout="flip")
+    return j, t
+
+
+def _flip_q_sigs(corpus):
+    from repro_torch.core.pipeline import ScalLoPS
+    return ScalLoPS(TCfg(**FLIP_CFG), device="cpu").signatures(
+        corpus["query_ids"][8:], corpus["query_lens"][8:])
+
+
+def test_flip_index_gives_the_reference_csr_arrays(flip_indexes):
+    j, t = flip_indexes
+    assert (t.n_bands, t.key_hash, t.bands) == (j.n_bands, j.key_hash,
+                                                j.bands) == (1, "none", 2)
+    assert t.fingerprint == j.fingerprint
+    j._ensure_built()
+    t._ensure_built()
+    assert len(t.segments) == 2 and len(j.segments) == 1
+    _csr_equal(t._csr_np, j._csr_np)
+    one = TIndex(TCfg(**FLIP_CFG), t.sigs, t.valid, layout="flip",
+                 device="cpu")
+    one.seal()
+    _csr_equal(one.segments[0].csr, j.segments[0].csr)
+    np.testing.assert_array_equal(t.partition(1).host_slabs()[0],
+                                  j.partition(1).host_slabs()[0])
+
+
+@pytest.mark.parametrize("cap", [2, 64])
+def test_flip_probe_and_topk_match(flip_indexes, corpus, cap):
+    j, t = flip_indexes
+    qs = _flip_q_sigs(corpus)
+    qj = qs.numpy().view(np.uint32)
+    np.testing.assert_array_equal(
+        t.query_keys(qs).numpy(), np.asarray(j.query_keys(qj)).astype(
+            np.int64))
+    tc, to = t.probe(qs, cap=cap)
+    jc, jo = j.probe(qj, cap=cap)
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    assert bool(to) == bool(jo)
+    tid, tdist, tcap, ttr = t_svc.topk_probe(t, qs, k=5, cap=cap, max_cap=64)
+    jid, jdist, jcap, jtr = j_svc.topk_probe(j, qj, k=5, cap=cap, max_cap=64)
+    np.testing.assert_array_equal(tid.numpy(), np.asarray(jid))
+    np.testing.assert_array_equal(tdist.numpy(), np.asarray(jdist))
+    assert (tcap, ttr) == (jcap, jtr)
+
+
+def test_flip_engine_and_interop_match(flip_indexes, corpus):
+    """A JAX-built flip index carried into the port serves the same top-k
+    as the reference engine over it, and as the port's own flip index."""
+    j, t = flip_indexes
+    ti = index_from_arrays(**_exported(j), device="cpu")
+    assert ti.layout == "flip" and ti.n_bands == 1
+    _csr_equal(ti.segments[0].csr, j.segments[0].csr)
+    kw = dict(k=4, max_batch=8, mode="probe", probe_cap=4)
+    qi, ql = corpus["query_ids"], corpus["query_lens"]
+    b = j_svc.QueryEngine(j, j_svc.ServingConfig(**kw)).query_batch(qi, ql)
+    for idx in (ti, t):
+        a = t_svc.QueryEngine(idx, t_svc.ServingConfig(**kw)).query_batch(
+            qi, ql)
+        np.testing.assert_array_equal(a[0], np.asarray(b[0]))
+        np.testing.assert_array_equal(a[1], np.asarray(b[1]))
+
+
+def test_flip_layout_refusals_match_reference():
+    with pytest.raises(ValueError, match="f <= 32"):
+        TIndex(TCfg(**CFG), np.zeros((0, 2), np.uint32), np.zeros(0, bool),
                layout="flip", device="cpu")
+    t = TIndex(TCfg(**FLIP_CFG), np.zeros((0, 1), np.uint32),
+               np.zeros(0, bool), layout="flip", device="cpu")
+    with pytest.raises(ValueError, match="layout='band'"):
+        t.device_band_keys
+    with pytest.raises(ValueError, match="unknown index layout"):
+        TIndex(TCfg(**FLIP_CFG), np.zeros((0, 1), np.uint32),
+               np.zeros(0, bool), layout="lsh", device="cpu")
 
 
 def test_rowwave_on_cuda_names_k7(monkeypatch):

@@ -1,6 +1,7 @@
 """The port's kernels (K1 siggen, K2 dense Hamming, K3 wavefront SW, K4
-ungapped X-drop, K7 row-wave SW) against the JAX reference (K5's twin is
-held against its Pallas kernel in ``tests/test_torch_spgemm.py``).
+ungapped X-drop, K6 Hamming threshold count, K7 row-wave SW) against the
+JAX reference (K5's twin is held against its Pallas kernel in
+``tests/test_torch_spgemm.py``).
 
 On the CPU each wrapper in ``repro_torch.kernels.ops`` runs its kernel's
 plain twin; those twins are held here against the JAX Pallas kernels (in
@@ -12,6 +13,7 @@ is exact equality.
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 import jax.numpy as jnp
 
@@ -98,6 +100,50 @@ def test_hamming_twin_matches_pallas_kernel(Q, R, nw):
     got = ops.all_pairs_hamming(u32_to_i32(q), u32_to_i32(r))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ------------------------------------------------------------ K6 count
+@settings(max_examples=10, deadline=None)
+@given(
+    Q=st.integers(1, 40), R=st.integers(1, 70),
+    nw=st.sampled_from([1, 2, 4]), d=st.integers(0, 64),
+    seed=st.integers(0, 2**16),
+)
+def test_hamming_count_twin_matches_pallas_kernel(Q, R, nw, d, seed):
+    """The reference's property test (``tests/test_properties.py``): the
+    Pallas kernel pads refs with all-ones rows and subtracts their hits;
+    the twin (and K6) has no padding to undo."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 2**32, (Q, nw), dtype=np.uint32)
+    r = rng.integers(0, 2**32, (R, nw), dtype=np.uint32)
+    want = np.asarray(j_ops.hamming_counts(jnp.asarray(q), jnp.asarray(r), d,
+                                           bq=8, br=16))
+    got = ops.hamming_counts(u32_to_i32(q), u32_to_i32(r), d)
+    assert got.dtype == torch.int32 and got.shape == (Q,)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("d", [0, 2])
+def test_hamming_count_twin_near_neighbours(d):
+    """Queries planted 0-3 bits from refs (random words sit ~nw*16 bits
+    apart, so random inputs test the all-or-nothing ends of d), a ragged
+    ref tile, and an all-ones query (the reference's pad pattern)."""
+    rng = np.random.default_rng(d)
+    r = rng.integers(0, 2**32, (37, 2), dtype=np.uint32)
+    q = r[rng.integers(0, 37, 13)].copy()
+    for i in range(13):
+        for b in range(i % 4):
+            q[i, b % 2] ^= np.uint32(1) << np.uint32((5 * i + b) % 32)
+    q[-1] = 0xFFFFFFFF
+    r[-1] = 0xFFFFFFFE
+    want = np.asarray(j_ops.hamming_counts(jnp.asarray(q), jnp.asarray(r), d,
+                                           bq=8, br=16))
+    got = ops.hamming_counts(u32_to_i32(q), u32_to_i32(r), d)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        got.numpy(), (ref.hamming_dist_ref(u32_to_i32(q), u32_to_i32(r))
+                      <= d).sum(1).numpy())
+    assert want.max() > 0
 
 
 # ------------------------------------------------------------ K3 wavefront
@@ -234,6 +280,7 @@ def test_cpu_tensors_run_the_twins_and_count_no_launch():
                          cap=2)
     q = torch.zeros((2, 1), dtype=torch.int32)
     ops.all_pairs_hamming(q, q)
+    assert ops.hamming_counts(q, q, 0).tolist() == [2, 2]
     assert all(v == 0 for v in ops.LAUNCHES.values())
 
 
@@ -241,3 +288,26 @@ def test_meta_device_operands_are_refused():
     q = torch.zeros((2, 1), dtype=torch.int32)
     with pytest.raises(ValueError):
         ops.all_pairs_hamming(q, q.to("meta"))
+    with pytest.raises(ValueError):
+        ops.hamming_counts(q, q.to("meta"), 1)
+
+
+def test_cuda_operands_launch_k6(monkeypatch):
+    """CUDA operands go to K6's launcher and count one launch. With no card
+    here, the device check answers CUDA and a stand-in takes the launch,
+    so the test sees what the router hands the kernel."""
+    from repro_torch.kernels import hamming
+    seen = []
+
+    def fake_k6(q, r, *, d):
+        seen.append((tuple(q.shape), tuple(r.shape), d))
+        return torch.zeros(q.shape[0], dtype=torch.int32)
+
+    monkeypatch.setattr(ops, "_on_cuda", lambda *t: True)
+    monkeypatch.setattr(hamming, "hamming_count", fake_k6)
+    ops.reset_launches()
+    q = torch.zeros((3, 2), dtype=torch.int32)
+    ops.hamming_counts(q, torch.zeros((5, 2), dtype=torch.int32), 2)
+    assert seen == [((3, 2), (5, 2), 2)]
+    assert ops.LAUNCHES["hamming_count"] == 1
+    ops.reset_launches()
