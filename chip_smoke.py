@@ -46,7 +46,13 @@ Phases, any failure exits non-zero:
               timed on the card alone (its launches captured in one CUDA
               graph): on the inputs the main paths gave it first, and K4
               and K7 on one full wave of their most used shape; K2 and K6
-              also against ``torch.cdist(p=0)`` on unpacked bits.
+              also against ``torch.cdist(p=0)`` on unpacked bits. K3
+              (linear) and K4 are also replayed, each replay checked and
+              timed on its own, at the all-pairs waves of their most used
+              shape: one full wave, and the first wave of that shape as
+              the plan fills it (PAD slots included). Each logs its
+              kernel share of its all-pairs stage: all-pairs launches x
+              the real-fill wave's ms over the stage's wall clock.
 8. small    — a 2,000-ref index served, and a 2,000-sequence corpus
               clustered by ``all_pairs_search`` (the kernel route above,
               and the default PID route), ``ScalLoPS.search`` with each
@@ -117,6 +123,23 @@ def _dataset(name: str) -> dict:
 def _fail(msg: str) -> int:
     print(f"chip_smoke: {msg}", file=sys.stderr)
     return 2
+
+
+def _log_ptxas(build, log):
+    """One line per kernel of sw.cu: what ptxas reported for it (``-Xptxas
+    -v``), names demangled by c++filt where the machine has it."""
+    usage = build.resource_usage("sw")
+    names = list(usage)
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True, check=True,
+                               timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        pass
+    for name, u in zip(names, usage.values()):
+        log(f"[build] ptxas sw.cu {name}: {u.get('registers')} registers, "
+            f"{u.get('stack')} bytes stack, {u.get('spill_stores')} / "
+            f"{u.get('spill_loads')} bytes spill stores / loads")
 
 
 def _window(torch, ops, fn):
@@ -615,9 +638,22 @@ def _full_wave(torch, ids, lens, pairs, shape, quantum):
     return block(sel[:, 0], Lq), block(sel[:, 1], Lr)
 
 
+def _plan_wave(corpus, lens, pool, shape, wcfg, wave_batch):
+    """The first wave of the plan's shape ``(B, Lq, Lr)`` as
+    ``score_pairs`` issues it over the pairs ``pool``: its (B, Lq) and
+    (B, Lr) blocks on the card, all-PAD rows in the slots past its real
+    pairs, and the number of real pairs."""
+    from repro_torch.allpairs.tiles import _iter_wave_chunks
+    for chunk, B, Lq, Lr in _iter_wave_chunks(pool, lens, wcfg, wave_batch):
+        if (B, Lq, Lr) == shape:
+            return corpus.wave(pool, chunk, B, Lq, Lr), len(chunk)
+    raise AssertionError(f"the plan issues no wave of shape {shape}")
+
+
 def phase_allpairs(torch, ops, dev, log):
     from repro_torch.allpairs import (all_pairs_ingest, all_pairs_search,
                                       forest_from_result, score_pairs)
+    from repro_torch.allpairs.tiles import _DeviceCorpus
     from repro_torch.data.synthetic import (FamilyCorpusConfig,
                                             make_family_corpus)
     from repro_torch.index.store import SignatureIndex
@@ -698,18 +734,28 @@ def phase_allpairs(torch, ops, dev, log):
             raise AssertionError(f"all_pairs_search never launched {name}")
 
     # one full wave of each kernel's most used shape, from this run's
-    # candidates (K4) and survivors (K7 runs the SW waves' plan)
+    # candidates (K4) and survivors (K3 and K7 run the SW waves' plan),
+    # and the first wave of that shape as the plan fills it
     surv = res.pairs[kept]
-    full = {}
-    for name, kind, pool in (("ungapped_scores", "ungapped", res.pairs),
-                             ("sw_rowwave", "sw", surv)):
+    full, real = {}, {}
+    wave_corpus = _DeviceCorpus(ids, lens, dev, cfg.wave.len_quantum)
+    for name, kind, pool, wb in (
+            ("ungapped_scores", "ungapped", res.pairs,
+             cfg.wave.prefilter_batch),
+            ("wave_scores_linear", "sw", surv, cfg.wave.wave_batch)):
         shape = max((s for s in by_shape if s[0] == kind),
                     key=lambda s: by_shape[s])[1:]
         full[name] = _full_wave(torch, ids, lens, pool, shape,
                                 cfg.wave.len_quantum)
-        log(f"[allpairs] {name} replay: one full wave of the most used "
-            f"{kind} shape (B, Lq, Lr) = {shape} ({by_shape[(kind,) + shape]}"
-            f" waves on the main path), {full[name][0].shape[0]} real pairs")
+        real[name], n_real = _plan_wave(wave_corpus, lens, pool, shape,
+                                        cfg.wave, wb)
+        log(f"[allpairs] {name} replays: the most used {kind} shape "
+            f"(B, Lq, Lr) = {shape} ({by_shape[(kind,) + shape]} waves on "
+            f"the main path), one full wave ({full[name][0].shape[0]} real "
+            f"pairs) and its first wave on the main path ({n_real} real "
+            f"pairs of {shape[0]})")
+    del wave_corpus
+    full["sw_rowwave"] = full["wave_scores_linear"]
 
     # K7's path: the row wave over the survivors gives the wavefront's
     # scores
@@ -747,7 +793,8 @@ def phase_allpairs(torch, ops, dev, log):
         raise AssertionError(f"ingest labels differ from the full run's "
                              f"on {bad} sequences")
     log("[allpairs] ingest labels == full-run labels")
-    return index, res, corpus, main_l, rw_l, full
+    stages = {"ungapped_scores": pre_s, "wave_scores_linear": sw_s}
+    return index, res, corpus, main_l, rw_l, full, real, stages
 
 
 def phase_join_routes(torch, corpus, dev, log):
@@ -948,7 +995,29 @@ def _library(torch, name, args, kw, got, log):
     return None
 
 
-def phase_kernels(torch, recorded, full, launches, log):
+def _check_and_time(torch, name, args, kw, run, twin, reps, twin_reps):
+    """One kernel call held exactly against its twin on the same inputs,
+    then timed: (got, max abs err, kernel ms, twin ms, bound ms,
+    bound_by). Raises if the two disagree."""
+    got = run(*args, **kw)
+    want, once_ms = _once(torch, lambda: twin(*args, **kw))
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
+                             f"twin {tuple(want.shape)}")
+    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    if err != 0:
+        raise AssertionError(f"{name} disagrees with its twin: max abs "
+                             f"err {err}")
+    del want
+    ms = _graph_ms(torch, lambda: run(*args, **kw), reps)
+    plain_ms = (_timed(torch, lambda: twin(*args, **kw), twin_reps)
+                if twin_reps else once_ms)
+    return (got, err, ms, plain_ms) + _bounds(name, args, kw)
+
+
+def phase_kernels(torch, recorded, full, real, stages, launches, pair_l,
+                  log):
+    from repro_torch.core.alphabet import PAD
     from repro_torch.kernels import ref
     from repro_torch.kernels.hamming import hamming_count, hamming_dist
     from repro_torch.kernels.siggen import siggen_accumulate
@@ -968,31 +1037,21 @@ def phase_kernels(torch, recorded, full, launches, log):
         "upper_pairs": (upper_pairs, ref.upper_pairs_ref, 10, 1),
         "sw_rowwave": (sw_rowwave, ref.sw_rowwave_ref, 50, 1),
     }
+    # K4 and K7: their first waves are nearly empty, so their row is a
+    # full wave of the most used shape (with the first launch's arguments)
+    main_full = ("ungapped_scores", "sw_rowwave")
     rows = []
     for name, (source, replaces) in KERNELS.items():
         if name not in recorded:
             raise AssertionError(f"the main path never launched {name}")
-        # K4 and K7: their first waves are nearly empty, so a full wave of
-        # the most used shape (with the first launch's arguments)
         args, kw = recorded[name]
-        args = full.get(name, args)
+        if name in main_full:
+            args = full[name]
         run, twin, reps, twin_reps = runners[name]
-        got = run(*args, **kw)
-        want, once_ms = _once(torch, lambda: twin(*args, **kw))
-        if got.shape != want.shape:
-            raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
-                                 f"twin {tuple(want.shape)}")
-        err = int((got.long() - want.long()).abs().max()) \
-            if got.numel() else 0
-        if err != 0:
-            raise AssertionError(f"{name} disagrees with its twin: max abs "
-                                 f"err {err}")
-        del want
-        ms = _graph_ms(torch, lambda: run(*args, **kw), reps)
-        plain_ms = (_timed(torch, lambda: twin(*args, **kw), twin_reps)
-                    if twin_reps else once_ms)
-        bound_ms, bound_by = _bounds(name, args, kw)
+        got, err, ms, plain_ms, bound_ms, bound_by = _check_and_time(
+            torch, name, args, kw, run, twin, reps, twin_reps)
         library_ms = _library(torch, name, args, kw, got, log)
+        del got
         shapes = " x ".join(str(tuple(a.shape)) for a in args)
         log(f"[kernels] {name} at {shapes}{' ' + json.dumps(kw) if kw else ''}"
             f": exact vs twin; kernel "
@@ -1000,12 +1059,38 @@ def phase_kernels(torch, recorded, full, launches, log):
             f"twin {plain_ms:.4f} ms, bound "
             f"{bound_ms * 1e3:.3f} us ({bound_by}), "
             f"{launches[name]} launches on the main path")
-        rows.append(dict(name=name, route="cuda", source=source,
-                         replaces=replaces, launches=launches[name],
-                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by,
-                         library_ms=library_ms))
-        del got
+        row = dict(name=name, route="cuda", source=source,
+                   replaces=replaces, launches=launches[name],
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=library_ms)
+        if name in real:
+            # the all-pairs waves: a full wave and the first wave as the
+            # plan fills it, each its own check and time
+            waves = {"full": full[name], "real": real[name]}
+            for which, wargs in waves.items():
+                if which == "full" and name in main_full:
+                    row["wave_ms_full"] = ms
+                    continue
+                _, werr, wms, wplain, wbound, wby = _check_and_time(
+                    torch, name, wargs, kw, run, twin, reps, twin_reps)
+                n_real = int((wargs[0] != PAD).any(1).sum())
+                log(f"[kernels] {name} all-pairs {which} wave at "
+                    f"{tuple(wargs[0].shape)} x {tuple(wargs[1].shape)} "
+                    f"({n_real} pairs with a residue): exact vs twin; "
+                    f"kernel {wms:.4f} ms (device, {reps} launches in one "
+                    f"CUDA graph), twin {wplain:.4f} ms, bound "
+                    f"{wbound * 1e3:.3f} us ({wby})")
+                row["max_abs_err"] = max(row["max_abs_err"], werr)
+                row[f"wave_ms_{which}"] = wms
+            row["allpairs_launches"] = pair_l[name]
+            share = pair_l[name] * row["wave_ms_real"] / 1e3 / stages[name]
+            log(f"[kernels] {name} kernel share of its all-pairs stage: "
+                f"{pair_l[name]} launches x {row['wave_ms_real']:.4f} ms "
+                f"(the real-fill wave) / {stages[name]:.3f} s of stage wall "
+                f"clock = {share:.4f} (a lower bound on the card's busy "
+                f"share of the stage)")
+        rows.append(row)
         torch.cuda.empty_cache()
     return rows
 
@@ -1135,6 +1220,7 @@ def main() -> int:
     build_s = build.build_all()
     log(f"[build] nvcc sm_90a, {len(build.SOURCES)} sources in parallel: "
         f"{build_s:.2f} s")
+    _log_ptxas(build, log)
 
     ops.RECORDED = {}
     (index, serve_data, serve_probe), serve_l = _window(
@@ -1147,8 +1233,8 @@ def main() -> int:
         f"path): {json.dumps(search_l)}")
     del index, serve_data, serve_probe
     siggen_l = phase_siggen(torch, ops, dev, log)
-    index, res, corpus, pair_l, rowwave_l, full = phase_allpairs(
-        torch, ops, dev, log)
+    index, res, corpus, pair_l, rowwave_l, full, real, stages = \
+        phase_allpairs(torch, ops, dev, log)
     recorded, ops.RECORDED = ops.RECORDED, None
     phase_allpairs_cpu_join(index, res, log)
     del index, res
@@ -1170,7 +1256,8 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on their main path: "
                              f"{missing}")
 
-    rows = phase_kernels(torch, recorded, full, launches, log)
+    rows = phase_kernels(torch, recorded, full, real, stages, launches,
+                         pair_l, log)
     phase_small(torch, dev, log)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(smi)

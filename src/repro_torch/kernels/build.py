@@ -4,10 +4,13 @@ Each ``csrc/<name>.cu`` compiles on first use into its own shared library
 with a plain C interface:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o _build/<name>-<hash>.so \\
+         csrc/<name>.cu
 
 The file name carries a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one is reused. All sources build at once,
+source rebuilds and an unchanged one is reused. nvcc's output (``-Xptxas
+-v``: each kernel's registers and spills) is kept beside the library and
+read by :func:`resource_usage`. All sources build at once,
 one nvcc process each, started together. The build directory sits beside
 this file and is listed in ``.gitignore``; nothing else is written.
 
@@ -19,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -31,7 +35,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("siggen", "hamming", "sw", "spgemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -81,10 +85,37 @@ def build_all() -> float:
             errors.append(f"{name}.cu:\n{out.decode(errors='replace')}")
             tmp.unlink(missing_ok=True)
         else:
+            _target(name).with_suffix(".log").write_bytes(out)
             os.replace(tmp, _target(name))   # atomic: no torn library
     if errors:
         raise RuntimeError("nvcc failed\n" + "\n".join(errors))
     return time.perf_counter() - t0
+
+
+def resource_usage(name: str) -> dict[str, dict[str, int]]:
+    """Per kernel of ``csrc/<name>.cu`` (mangled entry name), what ptxas
+    reported when it was built: registers, stack frame and spill bytes."""
+    log = _target(name).with_suffix(".log")
+    if not log.exists():
+        return {}
+    usage: dict[str, dict[str, int]] = {}
+    entry = None
+    for line in log.read_text(errors="replace").splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = usage.setdefault(m.group(1), {})
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            entry.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                         spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entry["registers"] = int(m.group(1))
+    return usage
 
 
 def library(name: str) -> ctypes.CDLL:

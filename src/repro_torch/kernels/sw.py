@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -22,10 +23,42 @@ import torch
 from . import build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-MAX_LQ = 8192       # 256 threads x 32 rows per thread
-
-
+MAX_LQ = 8192       # K3: 8 strips of 32 lanes x 32 rows
 MAX_LR = 8192       # 256 threads x 32 columns per thread (K7)
+
+# K3's launch geometry: csrc/sw.cu picks the same rows per lane; where the
+# strip buffers live is decided here (a scratch pointer or none)
+WAVE_WARPS = 4                     # pairs (one warp each) per block
+WAVE_RPT = tuple(range(4, 33, 4))  # query rows per lane, by Lq
+WAVE_SMEM_BUF_MAX = 64 * 1024      # strip buffers in shared memory up to
+
+
+@dataclass(frozen=True)
+class WaveGeometry:
+    rpt: int               # query rows per lane; a strip is 32 * rpt rows
+    pairs_per_block: int
+    strips: int            # strips of the longest query (Lq)
+    smem_bytes: int        # dynamic shared memory per block
+    scratch_per_pair: int  # int32 strip-buffer words per pair in global
+                           # memory (0: the buffers sit in shared memory)
+
+
+def wave_geometry(Lq: int, Lr: int, affine: bool) -> WaveGeometry:
+    """K3's launch geometry for a (B, Lq) x (B, Lr) block: rows per lane
+    the smallest of ``WAVE_RPT`` whose strip holds Lq rows (else the
+    largest, in several strips); per warp a 21 x 32 x rpt int8 query
+    profile and, with more than one strip, the last row's H (and F,
+    affine) of each column, in shared memory while the block's buffers
+    fit ``WAVE_SMEM_BUF_MAX`` bytes, else in global scratch."""
+    rpt = next((r for r in WAVE_RPT if 32 * r >= Lq), WAVE_RPT[-1])
+    strips = -(-Lq // (32 * rpt))
+    nbuf = 2 if affine else 1
+    prof = WAVE_WARPS * 21 * 32 * rpt
+    buf = WAVE_WARPS * 4 * Lr * nbuf if strips > 1 else 0
+    in_smem = buf <= WAVE_SMEM_BUF_MAX
+    return WaveGeometry(rpt=rpt, pairs_per_block=WAVE_WARPS, strips=strips,
+                        smem_bytes=prof + (buf if in_smem else 0),
+                        scratch_per_pair=0 if in_smem else nbuf * Lr)
 
 
 @functools.lru_cache(maxsize=8)
@@ -65,11 +98,16 @@ def wave_scores(qs: torch.Tensor, rs: torch.Tensor, *, gap_open: int,
     if Lq > MAX_LQ:
         raise ValueError(f"wave_scores takes Lq <= {MAX_LQ}, got {Lq}")
     out = torch.empty((B,), dtype=torch.int32, device=qs.device)
+    geo = wave_geometry(Lq, Lr, affine)
+    scratch = (torch.empty((B, geo.scratch_per_pair), dtype=torch.int32,
+                           device=qs.device)
+               if geo.scratch_per_pair and B else None)
     fn = build.function("sw", "wave_scores",
-                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P])
     build.launch(fn, qs.device, qs.data_ptr(), rs.data_ptr(),
                  _table(qs.device).data_ptr(), out.data_ptr(), B, Lq, Lr,
-                 int(gap_open), int(gap_extend), int(bool(affine)))
+                 int(gap_open), int(gap_extend), int(bool(affine)),
+                 None if scratch is None else scratch.data_ptr())
     return out
 
 

@@ -20,6 +20,7 @@ from repro_torch.core.neighbors import codebook_onehot, shingle_rows
 from repro_torch.core.shingle import extract_shingles
 from repro_torch.core.simhash import hyperplanes
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.sw import MAX_LQ
 from repro_torch.util import u32_to_i32
 
 
@@ -163,17 +164,50 @@ def test_flip_index_topk_card_equals_cpu(cuda_device):
         np.testing.assert_array_equal(x, y)
 
 
+def _wave_block(B, Lq, Lr, seed):
+    """A pair block for K3/K4: ragged PAD tails, PAD inside the sequences,
+    an all-PAD pair inside the block (B > 1), and a first pair that fills
+    both widths, a near copy so its best path crosses every strip."""
+    qs, rs = _pairs(B, Lq, Lr, seed)
+    rng = np.random.default_rng(seed + 1)
+    qs[0] = rng.integers(0, 20, Lq)
+    rs[0] = rng.integers(0, 20, Lr)
+    m = min(Lq, Lr)
+    rs[0, :m] = np.where(rng.random(m) < 0.1, rs[0, :m], qs[0, :m])
+    if B > 1:
+        qs[B // 2 :B // 2 + 1] = PAD
+        qs[1:, Lq // 3] = PAD
+        rs[1:, Lr // 2] = PAD
+    return qs, rs
+
+
+# (B, Lq, Lr): K3's rows per lane switch at Lq = 128, 256, 512, 768 and
+# its 1024-row strips repeat past 1024; B not a multiple of the 4 pairs a
+# block; Lr = 1; Lq above and below Lr; the strip buffers in global scratch
+# (affine Lr > 2048 or linear Lr > 4096 with more than one strip)
+_WAVE_SHAPES = [(9, 40, 250), (9, 300, 250), (9, 1100, 250), (1, 129, 1),
+                (6, 257, 1), (5, 513, 700), (7, 769, 300), (6, 1023, 300),
+                (5, 1024, 60), (7, 1025, 300), (3, 2049, 2100),
+                (2, MAX_LQ, 100), (2, 1500, 4500)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("gap_mode", ["linear", "affine"])
-@pytest.mark.parametrize("Lq", [40, 300, 1100])
-def test_wave_kernel_matches_twin_on_card(cuda_device, gap_mode, Lq):
-    qs, rs = _pairs(9, Lq, 250, Lq)
+@pytest.mark.parametrize("gap_mode,go,ge", [("linear", None, None),
+                                            ("affine", None, None),
+                                            ("affine", -4, -4)])
+@pytest.mark.parametrize("B,Lq,Lr", _WAVE_SHAPES)
+def test_wave_kernel_matches_twin_on_card(cuda_device, gap_mode, go, ge, B,
+                                          Lq, Lr):
+    qs, rs = _wave_block(B, Lq, Lr, Lq * 3 + Lr)
     q, r = torch.from_numpy(qs).to(cuda_device), torch.from_numpy(rs).to(
         cuda_device)
-    got = ops.wavefront_scores(q, r, gap_mode=gap_mode)
-    np.testing.assert_array_equal(
-        got.cpu().numpy(),
-        ops.wavefront_scores(q.cpu(), r.cpu(), gap_mode=gap_mode).numpy())
+    kw = dict(gap_mode=gap_mode, gap_open=go, gap_extend=ge)
+    got = ops.wavefront_scores(q, r, **kw)
+    want = ops.wavefront_scores(q.cpu(), r.cpu(), **kw).numpy()
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    assert want[0] > 0
+    if B > 1:
+        assert want[B // 2] == 0
 
 
 @pytest.mark.cuda
@@ -196,15 +230,21 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("x", [None, 10, 0])
-@pytest.mark.parametrize("Lq", [40, 300, 1100])
-def test_ungapped_kernel_matches_twin_on_card(cuda_device, x, Lq):
-    """Ragged PAD tails, an all-PAD last row, finite and no X-drop."""
-    qs, rs = _pairs(9, Lq, 250, Lq + 1)
+@pytest.mark.parametrize("B,Lq,Lr", [(9, 40, 250), (9, 300, 250),
+                                     (9, 1100, 250), (1, 64, 1), (5, 1, 300),
+                                     (7, 600, 40), (3, 300, 1100),
+                                     (2, 2000, 1500)])
+def test_ungapped_kernel_matches_twin_on_card(cuda_device, x, B, Lq, Lr):
+    """Ragged PAD tails, PAD inside, an all-PAD pair inside the block,
+    Lr = 1, Lq = 1, B = 1, more diagonals than the block's 1,024 threads;
+    finite and no X-drop."""
+    qs, rs = _wave_block(B, Lq, Lr, Lq + Lr + 1)
     q, r = torch.from_numpy(qs).to(cuda_device), torch.from_numpy(rs).to(
         cuda_device)
     got = ops.ungapped_wave_scores(q, r, x=x)
     want = ops.ungapped_wave_scores(q.cpu(), r.cpu(), x=x)
-    assert int(want[-1]) == 0
+    if B > 1:
+        assert int(want[B // 2]) == 0
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
 
 

@@ -268,6 +268,130 @@ def test_ungapped_twin_matches_host_oracle():
         np.testing.assert_array_equal(got.numpy(), want)
 
 
+# --------------------------------------- K3 / K4 redesign identities
+_TRIM_CASES = ["tails", "all_pad", "length1", "inner_pad"]
+
+
+def _trim_block(case, seed):
+    """A (6, 40) x (6, 33) block of one kind: random PAD tails, all-PAD
+    rows on either side, length-1 pairs, or PAD inside the sequences."""
+    rng = np.random.default_rng(seed)
+    B, Lq, Lr = 6, 40, 33
+    qs = rng.integers(0, 20, (B, Lq)).astype(np.int8)
+    rs = rng.integers(0, 20, (B, Lr)).astype(np.int8)
+    rs[0, :20] = qs[0, :20]          # a high-scoring pair
+    for n in range(B):
+        qs[n, rng.integers(1, Lq + 1):] = PAD
+        rs[n, rng.integers(1, Lr + 1):] = PAD
+    if case == "all_pad":
+        qs[1, :] = PAD
+        rs[2, :] = PAD
+        qs[3, :] = rs[3, :] = PAD
+    elif case == "length1":
+        qs[1, 1:] = PAD
+        rs[2, 1:] = PAD
+        qs[3, 1:] = rs[3, 1:] = PAD
+        qs[4, 0] = rs[4, 0] = 7      # one matching cell
+        qs[4, 1:] = rs[4, 1:] = PAD
+    elif case == "inner_pad":
+        qs[:, 3] = PAD
+        rs[:, 5] = PAD
+        qs[0, 10:12] = PAD
+    return qs, rs
+
+
+def _last_residue_extent(x):
+    real = np.flatnonzero(x != PAD)
+    return int(real[-1]) + 1 if len(real) else 0
+
+
+@pytest.mark.parametrize("gap_mode,go,ge", [("linear", -4, -4),
+                                            ("affine", -11, -1),
+                                            ("affine", -4, -4)])
+@pytest.mark.parametrize("case", _TRIM_CASES)
+def test_wave_scores_equal_on_pairs_cut_at_last_residues(case, gap_mode, go,
+                                                         ge):
+    """K3 trims each pair to its last non-PAD residue on each side and
+    scores a pair with no residue on a side 0: the twin on the padded
+    block equals the twin on each cut pair, and the reference's sweep."""
+    from repro.align.gotoh import sw_wave_affine, sw_wave_linear
+    from repro_torch.align.gotoh import wave_scores
+    qs, rs = _trim_block(case, len(case) * 10 + go)
+    kw = dict(gap_open=go, gap_extend=ge, affine=gap_mode == "affine")
+    got = wave_scores(torch.from_numpy(qs), torch.from_numpy(rs), **kw)
+    cut = []
+    for q, r in zip(qs, rs):
+        lq, lr = _last_residue_extent(q), _last_residue_extent(r)
+        cut.append(0 if lq == 0 or lr == 0 else int(wave_scores(
+            torch.from_numpy(q[None, :lq].copy()),
+            torch.from_numpy(r[None, :lr].copy()), **kw)[0]))
+    if gap_mode == "linear":
+        want = np.asarray(sw_wave_linear(qs, rs, gap=go))
+    else:
+        want = np.asarray(sw_wave_affine(qs, rs, gap_open=go, gap_extend=ge))
+    np.testing.assert_array_equal(got.numpy(), cut)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got.max() > 0
+
+
+def _ungapped_no_drop_walk(qs, rs):
+    """Per pair, per diagonal: cur = max(cur + s, 0) with PAD cells at
+    -10^6, the best cur over all cells."""
+    from repro_torch.core.alphabet import BLOSUM62_PADDED
+    out = []
+    for q, r in zip(qs.astype(np.int64), rs.astype(np.int64)):
+        s = np.where((q[:, None] != PAD) & (r[None, :] != PAD),
+                     BLOSUM62_PADDED[q][:, r], -10**6)
+        best = 0
+        for k in range(-(len(q) - 1), len(r)):
+            cur = 0
+            for v in np.diagonal(s, k):
+                cur = max(cur + int(v), 0)
+                best = max(best, cur)
+        out.append(best)
+    return out
+
+
+@pytest.mark.parametrize("case", _TRIM_CASES)
+def test_ungapped_no_drop_is_the_relu_walk(case):
+    """K4's x=None specialisation walks cur = max(cur + s, 0) with PAD at
+    -10^6: the twin's restart rule and the reference's give the same."""
+    from repro.align.smith_waterman import ungapped_xdrop_scores
+    qs, rs = _trim_block(case, len(case) * 7)
+    got = ops.ungapped_wave_scores(torch.from_numpy(qs), torch.from_numpy(rs),
+                                   x=None)
+    np.testing.assert_array_equal(got.numpy(), _ungapped_no_drop_walk(qs, rs))
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(ungapped_xdrop_scores(qs, rs, x=None)))
+
+
+@pytest.mark.parametrize("Lq", [1, 31, 32, 33, 127, 129, 255, 257, 511, 513,
+                                767, 769, 1023, 1025, 1100, 8192])
+def test_wave_geometry(Lq):
+    """K3's launch geometry: the fewest rows per lane whose strip holds Lq
+    (else 32 rows and more strips), at most 8 strips, shared memory within
+    the card's 227 KB a block, global scratch only for multi-strip queries
+    whose strip buffers overflow shared memory."""
+    from repro_torch.kernels.sw import (MAX_LQ, WAVE_RPT, WAVE_SMEM_BUF_MAX,
+                                        wave_geometry)
+    for Lr in (1, 256, 730, 8192):
+        for affine in (False, True):
+            g = wave_geometry(Lq, Lr, affine)
+            assert g.rpt in WAVE_RPT and g.pairs_per_block == 4
+            fits = [r for r in WAVE_RPT if 32 * r >= Lq]
+            assert g.rpt == (fits[0] if fits else WAVE_RPT[-1])
+            assert g.strips == -(-Lq // (32 * g.rpt))
+            assert (g.strips > 1) == (Lq > 32 * WAVE_RPT[-1])
+            assert g.strips <= MAX_LQ // (32 * WAVE_RPT[-1])
+            buf = 4 * 4 * Lr * (2 if affine else 1)
+            spill = g.strips > 1 and buf > WAVE_SMEM_BUF_MAX
+            assert g.scratch_per_pair == (
+                (2 if affine else 1) * Lr if spill else 0)
+            assert g.smem_bytes == 4 * 21 * 32 * g.rpt + (
+                buf if g.strips > 1 and not spill else 0)
+            assert g.smem_bytes <= 232_448
+
+
 # ------------------------------------------------------------ routing
 def test_cpu_tensors_run_the_twins_and_count_no_launch():
     ops.reset_launches()
