@@ -46,13 +46,15 @@ Phases, any failure exits non-zero:
               timed on the card alone (its launches captured in one CUDA
               graph): on the inputs the main paths gave it first, and K4
               and K7 on one full wave of their most used shape; K2 and K6
-              also against ``torch.cdist(p=0)`` on unpacked bits. K3
-              (linear) and K4 are also replayed, each replay checked and
-              timed on its own, at the all-pairs waves of their most used
-              shape: one full wave, and the first wave of that shape as
-              the plan fills it (PAD slots included). Each logs its
-              kernel share of its all-pairs stage: all-pairs launches x
-              the real-fill wave's ms over the stage's wall clock.
+              also against ``torch.cdist(p=0)`` on unpacked bits, and K1
+              beside its function unfused in int8 (two blocked
+              ``torch._int_mm`` products, a log line only). K3 (linear),
+              K4 and K7 are also replayed, each replay checked and timed on
+              its own, at the all-pairs waves of their most used shape: one
+              full wave, and the first wave of that shape as the plan fills
+              it (PAD slots included). Each logs its kernel share of its
+              stage (K7: the row-wave step): launches x the real-fill
+              wave's ms over the stage's wall clock.
 8. small    — a 2,000-ref index served, and a 2,000-sequence corpus
               clustered by ``all_pairs_search`` (the kernel route above,
               and the default PID route), ``ScalLoPS.search`` with each
@@ -65,8 +67,9 @@ read just after it: serving (phase 2), each join's ``search_pairs``
 phase 5 the timed ``all_pairs_search`` (the all-pairs main path), the row
 wave over the survivors (K7's path), the base run and the ingest, each on
 its own. The kernel wrappers record their first inputs throughout phases
-2-5. The output ends with the card's ``nvidia-smi`` name and
-power limit, one JSON line of kernels, and the ``ok`` line. Needs one CUDA
+2-5. The build logs ptxas's registers and spills of every sw.cu
+and siggen.cu kernel. The output ends with the card's ``nvidia-smi`` name
+and power limit, one JSON line of kernels, and the ``ok`` line. Needs one CUDA
 card; imports nothing of JAX.
 """
 from __future__ import annotations
@@ -126,20 +129,23 @@ def _fail(msg: str) -> int:
 
 
 def _log_ptxas(build, log):
-    """One line per kernel of sw.cu: what ptxas reported for it (``-Xptxas
-    -v``), names demangled by c++filt where the machine has it."""
-    usage = build.resource_usage("sw")
-    names = list(usage)
-    try:
-        names = subprocess.run(["c++filt"], input="\n".join(names),
-                               capture_output=True, text=True, check=True,
-                               timeout=60).stdout.splitlines()
-    except (OSError, subprocess.SubprocessError):
-        pass
-    for name, u in zip(names, usage.values()):
-        log(f"[build] ptxas sw.cu {name}: {u.get('registers')} registers, "
-            f"{u.get('stack')} bytes stack, {u.get('spill_stores')} / "
-            f"{u.get('spill_loads')} bytes spill stores / loads")
+    """One line per kernel of sw.cu and siggen.cu: what ptxas reported for
+    it (``-Xptxas -v``), names demangled by c++filt where the machine has
+    it."""
+    for src in ("sw", "siggen"):
+        usage = build.resource_usage(src)
+        names = list(usage)
+        try:
+            names = subprocess.run(["c++filt"], input="\n".join(names),
+                                   capture_output=True, text=True,
+                                   check=True, timeout=60).stdout.splitlines()
+        except (OSError, subprocess.SubprocessError):
+            pass
+        for name, u in zip(names, usage.values()):
+            log(f"[build] ptxas {src}.cu {name}: {u.get('registers')} "
+                f"registers, {u.get('stack')} bytes stack, "
+                f"{u.get('spill_stores')} / {u.get('spill_loads')} bytes "
+                f"spill stores / loads")
 
 
 def _window(torch, ops, fn):
@@ -755,7 +761,9 @@ def phase_allpairs(torch, ops, dev, log):
             f"pairs) and its first wave on the main path ({n_real} real "
             f"pairs of {shape[0]})")
     del wave_corpus
+    # the row wave plans the same SW waves over the survivors
     full["sw_rowwave"] = full["wave_scores_linear"]
+    real["sw_rowwave"] = real["wave_scores_linear"]
 
     # K7's path: the row wave over the survivors gives the wavefront's
     # scores
@@ -763,9 +771,9 @@ def phase_allpairs(torch, ops, dev, log):
     rw, rw_l = _window(torch, ops, lambda: score_pairs(
         ids, lens, surv, replace(cfg.wave, prefilter=False,
                                  dp_kernel="rowwave"), device=dev))
+    rw_s = time.perf_counter() - t0
     log(f"[allpairs] rowwave (K7) over the {len(surv)} survivors: "
-        f"{time.perf_counter() - t0:.3f} s, {rw.n_waves} waves; launches "
-        f"{json.dumps(rw_l)}")
+        f"{rw_s:.3f} s, {rw.n_waves} waves; launches {json.dumps(rw_l)}")
     if rw_l["sw_rowwave"] <= 0:
         raise AssertionError("the row-wave path never launched sw_rowwave")
     if not np.array_equal(rw.scores, res.scored.scores[kept]):
@@ -793,7 +801,10 @@ def phase_allpairs(torch, ops, dev, log):
         raise AssertionError(f"ingest labels differ from the full run's "
                              f"on {bad} sequences")
     log("[allpairs] ingest labels == full-run labels")
-    stages = {"ungapped_scores": pre_s, "wave_scores_linear": sw_s}
+    # each replayed kernel's stage: (name, host wall clock s)
+    stages = {"ungapped_scores": ("the all-pairs prefilter stage", pre_s),
+              "wave_scores_linear": ("the all-pairs SW stage", sw_s),
+              "sw_rowwave": ("the row-wave step", rw_s)}
     return index, res, corpus, main_l, rw_l, full, real, stages
 
 
@@ -995,6 +1006,49 @@ def _library(torch, name, args, kw, got, log):
     return None
 
 
+def _siggen_int_mm(torch, args, kw, got, log):
+    """A yardstick for K1, logged only: its function unfused in int8, per
+    block of rows two ``torch._int_mm`` products with ``torch.where``
+    between (D zero-padded to a multiple of 8), checked equal to K1 and
+    timed with CUDA events around whole runs (the host's launch time
+    included). It is several calls, so not the library column, and the
+    port never calls it."""
+    rows, cb, H = args
+    T = kw["T"]
+    S, D = rows.shape
+    if int(rows.abs().max()) > 127:
+        log("[kernels] siggen_accumulate int8 yardstick: not run, a row "
+            "value leaves int8")
+        return
+    pad = (0, -D % 8)
+    x = torch.nn.functional.pad(rows.to(torch.int8), pad)
+    # the second operands column-major, as int8 GEMMs take them
+    cbT = torch.nn.functional.pad(cb, pad).T
+    Hc = H.T.contiguous().T
+    blk = 1 << 16
+    starts = list(range(0, S, blk))
+    if len(starts) > 1 and S - starts[-1] <= 16:   # _int_mm takes m > 16
+        starts.pop()
+    ends = starts[1:] + [S]
+
+    def run():
+        out = torch.empty((S, H.shape[1]), dtype=torch.int32,
+                          device=rows.device)
+        for i, j in zip(starts, ends):
+            sc = torch._int_mm(x[i:j], cbT)
+            out[i:j] = torch._int_mm(
+                torch.where(sc >= T, sc, 0).to(torch.int8), Hc)
+        return out
+
+    same = bool(torch.equal(run(), got))
+    reps = 5
+    ms = _timed(torch, run, reps)
+    log(f"[kernels] siggen_accumulate int8 yardstick (not the library "
+        f"column): {len(starts)} blocks of <= {blk} rows, each "
+        f"torch._int_mm, torch.where, torch._int_mm: {ms:.4f} ms a run "
+        f"(mean of {reps}, host launch time included), equal to K1: {same}")
+
+
 def _check_and_time(torch, name, args, kw, run, twin, reps, twin_reps):
     """One kernel call held exactly against its twin on the same inputs,
     then timed: (got, max abs err, kernel ms, twin ms, bound ms,
@@ -1015,7 +1069,7 @@ def _check_and_time(torch, name, args, kw, run, twin, reps, twin_reps):
     return (got, err, ms, plain_ms) + _bounds(name, args, kw)
 
 
-def phase_kernels(torch, recorded, full, real, stages, launches, pair_l,
+def phase_kernels(torch, recorded, full, real, stages, launches, wave_l,
                   log):
     from repro_torch.core.alphabet import PAD
     from repro_torch.kernels import ref
@@ -1028,7 +1082,7 @@ def phase_kernels(torch, recorded, full, real, stages, launches, pair_l,
     runners = {   # name: (kernel launcher, plain twin, reps, twin reps);
         # twin reps 0: the twin is timed by the one call that checks it
         "siggen_accumulate": (siggen_accumulate, ref.siggen_accumulate_ref,
-                              3, 1),
+                              20, 1),
         "hamming_dist": (hamming_dist, ref.hamming_dist_ref, 50, 3),
         "hamming_count": (hamming_count, _count_twin, 5, 0),
         "wave_scores_linear": (wave_scores, ref.wave_scores_ref, 20, 1),
@@ -1051,6 +1105,8 @@ def phase_kernels(torch, recorded, full, real, stages, launches, pair_l,
         got, err, ms, plain_ms, bound_ms, bound_by = _check_and_time(
             torch, name, args, kw, run, twin, reps, twin_reps)
         library_ms = _library(torch, name, args, kw, got, log)
+        if name == "siggen_accumulate":
+            _siggen_int_mm(torch, args, kw, got, log)
         del got
         shapes = " x ".join(str(tuple(a.shape)) for a in args)
         log(f"[kernels] {name} at {shapes}{' ' + json.dumps(kw) if kw else ''}"
@@ -1083,13 +1139,14 @@ def phase_kernels(torch, recorded, full, real, stages, launches, pair_l,
                     f"{wbound * 1e3:.3f} us ({wby})")
                 row["max_abs_err"] = max(row["max_abs_err"], werr)
                 row[f"wave_ms_{which}"] = wms
-            row["allpairs_launches"] = pair_l[name]
-            share = pair_l[name] * row["wave_ms_real"] / 1e3 / stages[name]
-            log(f"[kernels] {name} kernel share of its all-pairs stage: "
-                f"{pair_l[name]} launches x {row['wave_ms_real']:.4f} ms "
-                f"(the real-fill wave) / {stages[name]:.3f} s of stage wall "
+            row["allpairs_launches"] = wave_l[name]
+            stage, stage_s = stages[name]
+            share = wave_l[name] * row["wave_ms_real"] / 1e3 / stage_s
+            log(f"[kernels] {name} kernel share of {stage}: "
+                f"{wave_l[name]} launches x {row['wave_ms_real']:.4f} ms "
+                f"(the real-fill wave) / {stage_s:.3f} s of its wall "
                 f"clock = {share:.4f} (a lower bound on the card's busy "
-                f"share of the stage)")
+                f"share of it)")
         rows.append(row)
         torch.cuda.empty_cache()
     return rows
@@ -1256,8 +1313,13 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on their main path: "
                              f"{missing}")
 
+    # launches on the paths of the replayed waves: K4 and K3 the timed
+    # all_pairs_search, K7 the row wave
+    wave_l = {"ungapped_scores": pair_l["ungapped_scores"],
+              "wave_scores_linear": pair_l["wave_scores_linear"],
+              "sw_rowwave": rowwave_l["sw_rowwave"]}
     rows = phase_kernels(torch, recorded, full, real, stages, launches,
-                         pair_l, log)
+                         wave_l, log)
     phase_small(torch, dev, log)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(smi)

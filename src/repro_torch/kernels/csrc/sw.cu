@@ -532,200 +532,319 @@ extern "C" int ungapped_scores(const void* qs, const void* rs,
 }
 
 // ---------------------------------------------------------------------------
-// K7 — row-wave linear-gap Smith-Waterman best score (sm_90a).
+// K7 — row-wave linear-gap Smith-Waterman best score, CUDA C++ for Hopper
+// (sm_90a).
 //
 // Replaces the TPU kernel repro/kernels/sw.py::sw_scores_kernel (body
 // _sw_kernel): the same function as K3 with linear gaps, by another
 // algorithm. Row i of H follows from row i-1 in closed form:
 //
 //     a_j    = max(0, H[i-1, j-1] + s[i, j], H[i-1, j] + GAP)
-//     H[i,j] = max_{t <= j} (a_t + c*t) - c*j,   c = -GAP
+//     H[i,j] = max_{t <= j} (a_t + c*(t+1)) - c*(j+1),   c = -GAP
 //
-// a max-plus prefix scan along the row (PAD cells score -10^6).
+// a max-plus prefix scan along the row; a cell with PAD on either side
+// takes no diagonal step (the twin's -10^6 score).
 //
-// Bound on this card: operations, about 6 int32 operations per real cell.
+// Bound on this card: operations, about 6 int32 operations per real cell,
+// while a pair moves Lq + Lr bytes in and 4 bytes out. An all-pairs SW wave
+// holds ~1 real pair of 56, so a launch there costs one pair's serial
+// chain of rows: the latency of a row, not the card's rate.
 //
-// What this design does about it: one block scores one pair, threads over
-// columns, each thread owning CPT consecutive columns of H in registers. Per
-// query row a thread computes its a_j (the left neighbour of its first
-// column comes from the thread before: a warp shuffle, or a shared slot
-// across warps), scans its own columns, and a warp-shuffle scan plus one
-// scan of the per-warp maxima in shared memory completes the block-wide
-// inclusive max-scan: three barriers per row instead of the TPU form's
-// log-doubling shifts. Rows and columns past the pair's last non-PAD
-// residue are not computed: there H only decays (each cell at most a value
-// of the rows or columns before it, minus 4), so the best is unchanged.
+// Design. One warp scores one pair; a block holds 4, 2 or 1 pairs and its
+// warps never wait on each other after the one block barrier that shares
+// the BLOSUM table. Lane t owns CPT consecutive reference columns j0.. (CPT
+// = ceil(Lr / 32) rounded up to a multiple of 4, at most 32; a template
+// constant) and keeps H[i-1, :] of them in registers. Per query row the
+// lane
+//   1. forms a_j = max(0, H[i-1, j-1] + s, H[i-1, j] + GAP), one DPX
+//      instruction a cell (__viaddmax_s32_relu), and keeps the best a_j
+//      (__vimax3_s32: a row's best H is its best a_j); H[i-1, j0-1] of its
+//      first column is the previous row's carry into it, which the lane
+//      already holds, so no shuffle starts the row;
+//   2. runs its own columns, v_k = max(v_{k-1} + GAP, a_k) (one DPX a
+//      cell), whose last value plus c*(j+1) is its total in the scan's
+//      offset domain, max_t (a_t + c*(t+1));
+//   3. scans the 32 totals for the max over the lanes before it (four
+//      independent __shfl_up_sync for lanes t-1..t-4, then three doubling
+//      steps: four shuffle latencies on the row's chain, not six); that
+//      max less c*j0 is the carry H[i, j0-1];
+//   4. applies it, H[i, j] = max(carry - c*(j - j0 + 1), v), one DPX
+//      instruction a cell (__viaddmax_s32), all cells at once.
+// The row loop has no barrier, no shared-memory round trip of H and no
+// block-wide reduction. The substitution scores come from a per-warp
+// reference profile built once per pair from the block's BLOSUM table: for
+// each residue a and lane t, the CPT int8 scores s(a, r_j) of t's columns
+// side by side, so the row of q_i is CPT/4 words a lane, loaded one row
+// ahead of the DP (the query residue two rows ahead). Cells are int32,
+// exact at any length the kernel takes.
+//
+// PAD. Each pair is trimmed to its last non-PAD residue on each side (a
+// warp ballot per 32 residues); a pair with no residue on a side writes 0
+// at once. Columns past the trimmed reference, and PAD columns inside it,
+// hold -128 in the profile. Past the end that is exact: such a cell never
+// exceeds the best real cell before it (each of its terms is a predecessor
+// less something), so those columns are computed and leave the best
+// alone. Inside the pair a lane's bit mask of PAD columns, and a
+// warp-uniform test of a PAD query row, replace a_j by max(0, H[i-1, j] +
+// GAP): the twin's cell. A pair without inner PAD never takes that branch.
+//
+// Long references. Past Lr = 1024 (32 columns a lane) the warp sweeps each
+// row in segments of 1024 columns, carrying the prefix max from one to the
+// next; H[i-1, :] then sits in a per-warp shared buffer, and the diagonal
+// of a lane's first column comes from the lane before (one
+// __shfl_up_sync). The launch geometry (CPT, segments, pairs a block,
+// shared bytes) is repro_torch/kernels/sw.py::rowwave_geometry; the
+// wrapper passes it in and this file checks it against its own.
 // ---------------------------------------------------------------------------
 
 namespace {
 
-// Max over the block of a non-negative value; every thread gets it.
-__device__ int block_max(int v, int* red) {
+constexpr int RW_CPT_MAX = 32;      // columns a lane, at most
+constexpr int RW_WARPS = 4;         // pairs a block, at most
+constexpr int RW_PSENT = -128;      // profile score of a PAD or past-end column
+// dynamic shared memory a block can use beside the static BLOSUM table
+constexpr long RW_SMEM_MAX = 232448 - 4 * NA * NA;
+
+// The geometry of rowwave_geometry (kernels/sw.py): columns a lane, row
+// segments, pairs a block and dynamic shared bytes for a width of Lr.
+struct RowwaveGeometry {
+  int cpt, segs, ppb;
+  long smem;
+};
+
+__host__ __device__ inline long rw_warp_bytes(int cpt, int segs) {
+  // the profile, and past one segment the H row and the PAD masks
+  const long cols = 32L * cpt;
+  return NA * cols * segs + (segs > 1 ? (4 * cols + 4 * 32) * segs : 0);
+}
+
+inline RowwaveGeometry rw_geometry(int Lr) {
+  int cpt = RW_CPT_MAX;
+  for (int c = 4; c < RW_CPT_MAX; c += 4)
+    if (32 * c >= Lr) { cpt = c; break; }
+  const int segs = (Lr + 32 * cpt - 1) / (32 * cpt);
+  const long warp = rw_warp_bytes(cpt, segs);
+  int ppb = 1;
+  for (int p = RW_WARPS; p > 1; p >>= 1)
+    if (p * warp <= RW_SMEM_MAX) { ppb = p; break; }
+  return {cpt, segs, ppb, ppb * warp};
+}
+
+// Builds the warp's reference profile for segments [0, nseg) of its pair:
+// prof[((seg * NA + a) * 32 + lane) * CPT + k] = s(a, r_j) of column
+// j = seg * 32 CPT + lane * CPT + k, RW_PSENT for a PAD column, a column
+// past lr or a PAD query residue a. Returns the lane's bit mask of PAD
+// columns inside [0, lr) of segment 0; with MULTI it stores each
+// segment's mask to pm[seg * 32 + lane] and zeroes the H row.
+template <int CPT, bool MULTI>
+__device__ __forceinline__ uint32_t rw_profile(
+    const int8_t* __restrict__ r, int lr, int nseg, const int32_t* tab,
+    int8_t* prof, int32_t* hbuf, uint32_t* pm, int lane) {
+  uint32_t mask0 = 0;
+  for (int sg = 0; sg < nseg; ++sg) {
+    int rc[CPT];
+    uint32_t mask = 0;
+#pragma unroll
+    for (int k = 0; k < CPT; ++k) {
+      const int j = sg * 32 * CPT + lane * CPT + k;
+      rc[k] = j < lr ? residue(r, j) : PADC;
+      if (j < lr && rc[k] == PADC) mask |= 1u << k;
+    }
+    for (int a = 0; a < NA; ++a) {
+      auto s = [&](int c) {
+        return (a == PADC || c == PADC) ? RW_PSENT : tab[a * NA + c];
+      };
+      int w[CPT / 4];
+#pragma unroll
+      for (int k = 0; k < CPT; k += 4)
+        w[k >> 2] = pack4(s(rc[k]), s(rc[k + 1]), s(rc[k + 2]), s(rc[k + 3]));
+      store_scores<CPT>(prof + ((sg * NA + a) * 32 + lane) * CPT, w);
+    }
+    if (MULTI) {
+      pm[sg * 32 + lane] = mask;
+#pragma unroll
+      for (int k = 0; k < CPT; ++k) hbuf[sg * 32 * CPT + lane * CPT + k] = 0;
+    }
+    if (sg == 0) mask0 = mask;
+  }
+  __syncwarp();
+  return mask0;
+}
+
+// One row of one segment, steps 1-2, from H[i-1, :] at the lane's columns
+// (h) and at the column before them (left), the scores w of residue qi and
+// the lane's mask of PAD columns inside the pair: a_j = max(0, H[i-1, j-1]
+// + s, H[i-1, j] + GAP) (one DPX instruction a cell), the best of them (the
+// row's best H is its best a_j), and in v[k] the lane's own row,
+// max over its columns t <= k of a_t - c*(k - t) (one DPX a cell).
+template <int CPT>
+__device__ __forceinline__ void rw_cells(const int* h, int left, const int* w,
+                                         int gap, bool padrow, uint32_t mask,
+                                         int* v, int& best) {
+#pragma unroll
+  for (int k = 0; k < CPT; ++k)
+    v[k] = __viaddmax_s32_relu(h[k], gap, (k ? h[k - 1] : left) + score_at(w, k));
+  if (padrow || mask) {   // PAD cells take no diagonal step
+#pragma unroll
+    for (int k = 0; k < CPT; ++k)
+      if (padrow || (mask >> k & 1)) v[k] = max(h[k] + gap, 0);
+  }
+#pragma unroll
+  for (int k = 0; k < CPT; k += 2) best = __vimax3_s32(best, v[k], v[k + 1]);
+#pragma unroll
+  for (int k = 1; k < CPT; ++k) v[k] = __viaddmax_s32(v[k - 1], gap, v[k]);
+}
+
+// Step 3: the max over the lanes before this one of their totals (0 for
+// lane 0: every total is positive, so 0 is the scan's identity).
+__device__ __forceinline__ int rw_exclusive_max(int total, int lane) {
+  int y = 0;
+#pragma unroll
+  for (int d = 1; d <= 4; ++d) {
+    const int o = __shfl_up_sync(FULL, total, d);
+    if (lane >= d) y = max(y, o);
+  }
+#pragma unroll
+  for (int d = 4; d < 32; d <<= 1)  // a lane below d gets its own y back
+    y = max(y, __shfl_up_sync(FULL, y, d));
+  return y;
+}
+
+template <int CPT, bool MULTI>
+__global__ void __launch_bounds__(RW_WARPS * 32, 1)
+rowwave_kernel(const int8_t* __restrict__ qs, const int8_t* __restrict__ rs,
+               const int32_t* __restrict__ table, int32_t* __restrict__ out,
+               int B, int Lq, int Lr, int gap, int segs) {
+  extern __shared__ __align__(16) int8_t smem[];
+  __shared__ int32_t tab[NA * NA];
+  for (int i = threadIdx.x; i < NA * NA; i += blockDim.x) tab[i] = table[i];
+  __syncthreads();   // the only block barrier, before any pair's DP
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = max(v, __shfl_xor_sync(FULL, v, off));
-  __syncthreads();  // red may still be read from a previous call
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < static_cast<int>(blockDim.x >> 5) ? red[lane] : 0;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v = max(v, __shfl_xor_sync(FULL, v, off));
-    if (lane == 0) red[0] = v;
+  const long b = static_cast<long>(blockIdx.x) * (blockDim.x >> 5) + warp;
+  if (b >= B) return;
+  const int8_t* q = qs + b * Lq;
+  const int8_t* r = rs + b * Lr;
+  const int lq = warp_extent(q, Lq, lane);
+  const int lr = warp_extent(r, Lr, lane);
+  if (lq == 0 || lr == 0) {
+    if (lane == 0) out[b] = 0;
+    return;
   }
-  __syncthreads();
-  return red[0];
-}
+  constexpr int COLS = 32 * CPT;   // columns of a segment
+  const int nseg = MULTI ? (lr + COLS - 1) / COLS : 1;
+  int8_t* prof = smem + warp * rw_warp_bytes(CPT, segs);
+  int32_t* hbuf = reinterpret_cast<int32_t*>(prof + NA * COLS * segs);
+  uint32_t* pm = reinterpret_cast<uint32_t*>(hbuf + COLS * segs);
+  const uint32_t mask0 =
+      rw_profile<CPT, MULTI>(r, lr, nseg, tab, prof, hbuf, pm, lane);
+  auto row_scores = [&](int sg, int qi) {
+    return prof + ((sg * NA + qi) * 32 + lane) * CPT;
+  };
+  auto qres = [&](int i) { return i < lq ? residue(q, i) : PADC; };
 
-// Loads one pair's residues (anything outside the alphabet as PAD) and the
-// BLOSUM62 table into shared memory; returns via lq/lr the extents up to the
-// last non-PAD residue on each side.
-__device__ void load_pair(const int8_t* __restrict__ qs,
-                          const int8_t* __restrict__ rs,
-                          const int32_t* __restrict__ table, int8_t* q,
-                          int8_t* r, int32_t* tab, int* red, int Lq, int Lr,
-                          int* lq, int* lr) {
-  const long b = blockIdx.x;
-  int eq = 0, er = 0;
-  for (int i = threadIdx.x; i < Lq; i += blockDim.x) {
-    const int v = qs[b * Lq + i];
-    const int c = (v >= 0 && v < PADC) ? v : PADC;
-    q[i] = static_cast<int8_t>(c);
-    if (c != PADC) eq = i + 1;
-  }
-  for (int j = threadIdx.x; j < Lr; j += blockDim.x) {
-    const int v = rs[b * Lr + j];
-    const int c = (v >= 0 && v < PADC) ? v : PADC;
-    r[j] = static_cast<int8_t>(c);
-    if (c != PADC) er = j + 1;
-  }
-  for (int i = threadIdx.x; i < NA * NA; i += blockDim.x) tab[i] = table[i];
-  *lq = block_max(eq, red);
-  *lr = block_max(er, red);
-}
-
-template <int CPT>
-__global__ void rowwave_kernel(const int8_t* __restrict__ qs,
-                               const int8_t* __restrict__ rs,
-                               const int32_t* __restrict__ table,
-                               int32_t* __restrict__ out, int Lq, int Lr,
-                               int gap) {
-  extern __shared__ int8_t res[];  // [Lq] query then [Lr] reference
-  __shared__ int32_t tab[NA * NA];
-  __shared__ int red[32];
-  __shared__ int xh[32];    // per-warp last column of H[i-1, :]
-  __shared__ int wsum[32];  // per-warp inclusive scan maxima
-  int8_t* q = res;
-  int8_t* r = res + Lq;
-  int lq, lr;
-  load_pair(qs, rs, table, q, r, tab, red, Lq, Lr, &lq, &lr);
-
-  const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int warp = t >> 5;
-  const int nw = blockDim.x >> 5;
   const int c = -gap;
-  const int j0 = t * CPT;  // first owned column (0-based; H column j0 + 1)
-  int rcol[CPT], h[CPT], v[CPT];
+  const int cj0 = c * lane * CPT;       // c*j0, within the segment
+  const int cend = cj0 + c * CPT;       // c*(last column + 1)
+  int nck[CPT], h[CPT], v[CPT];         // -c*(k+1); H[i-1, :]; the run
 #pragma unroll
   for (int k = 0; k < CPT; ++k) {
-    const int j = j0 + k;
-    rcol[k] = j < lr ? r[j] : PADC;
+    nck[k] = -c * (k + 1);
     h[k] = 0;
   }
   int best = 0;
-  for (int i = 0; i < lq; ++i) {
-    const int qi = q[i];
-    if (lane == 31) xh[warp] = h[CPT - 1];
-    __syncthreads();
-    int left = __shfl_up_sync(FULL, h[CPT - 1], 1);  // H[i-1, j0]
-    if (lane == 0) left = warp > 0 ? xh[warp - 1] : 0;
-    // descending: column k reads the old H[i-1, j0+k] of column k-1
+  int w[CPT / 4];
+  if (!MULTI) {
+    int left = 0;   // H[i-1, j0-1]
+    int qi = qres(0), qn = qres(1);
+    load_scores<CPT>(row_scores(0, qi), w);
+    for (int i = 0; i < lq; ++i) {
+      const int q2 = qres(i + 2);
+      int wn[CPT / 4];
+      load_scores<CPT>(row_scores(0, qn), wn);
+      rw_cells<CPT>(h, left, w, gap, qi == PADC, mask0, v, best);
+      left = rw_exclusive_max(v[CPT - 1] + cend, lane) - cj0;  // H[i, j0-1]
 #pragma unroll
-    for (int k = CPT - 1; k >= 0; --k) {
-      const int j = j0 + k;
-      if (j < lr) {
-        const int diag = k ? h[k - 1] : left;
-        const int s = (qi == PADC || rcol[k] == PADC)
-                          ? NEGS : tab[qi * NA + rcol[k]];
-        const int a = max(0, max(diag + s, h[k] + gap));
-        v[k] = a + c * (j + 1);
-      } else {
-        v[k] = 0;  // past the pair: the scan's identity (every v > 0)
-      }
+      for (int k = 0; k < CPT; ++k) h[k] = __viaddmax_s32(left, nck[k], v[k]);
+#pragma unroll
+      for (int k = 0; k < CPT / 4; ++k) w[k] = wn[k];
+      qi = qn;
+      qn = q2;
     }
+  } else {
+    for (int i = 0; i < lq; ++i) {
+      const int qi = qres(i);
+      int carry = 0;      // the prefix over the earlier segments
+      int seg_left = 0;   // H[i-1, first column of the segment - 1]
+      for (int sg = 0; sg < nseg; ++sg) {
+        int32_t* hs = hbuf + sg * COLS + lane * CPT;
 #pragma unroll
-    for (int k = 1; k < CPT; ++k) v[k] = max(v[k], v[k - 1]);
-    int ws = v[CPT - 1];
+        for (int k = 0; k < CPT; k += 4) {
+          const int4 x = *reinterpret_cast<const int4*>(hs + k);
+          h[k] = x.x; h[k + 1] = x.y; h[k + 2] = x.z; h[k + 3] = x.w;
+        }
+        load_scores<CPT>(row_scores(sg, qi), w);
+        int left = __shfl_up_sync(FULL, h[CPT - 1], 1);
+        if (lane == 0) left = seg_left;
+        seg_left = __shfl_sync(FULL, h[CPT - 1], 31);
+        rw_cells<CPT>(h, left, w, gap, qi == PADC, pm[sg * 32 + lane], v,
+                      best);
+        const int total = v[CPT - 1] + cend;
+        // H[i, j0-1]: the max over the earlier segments and lanes
+        const int hin = max(carry, rw_exclusive_max(total, lane)) - cj0;
+        // the next segment's offsets start COLS columns later
+        carry = max(carry, __reduce_max_sync(FULL, total)) - c * COLS;
 #pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int o = __shfl_up_sync(FULL, ws, off);
-      if (lane >= off) ws = max(ws, o);
-    }
-    if (lane == 31) wsum[warp] = ws;
-    __syncthreads();
-    if (warp == 0) {
-      int w = lane < nw ? wsum[lane] : 0;
+        for (int k = 0; k < CPT; ++k) h[k] = __viaddmax_s32(hin, nck[k], v[k]);
 #pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int o = __shfl_up_sync(FULL, w, off);
-        if (lane >= off) w = max(w, o);
-      }
-      if (lane < nw) wsum[lane] = w;
-    }
-    __syncthreads();
-    int pre = __shfl_up_sync(FULL, ws, 1);
-    if (lane == 0) pre = 0;
-    if (warp > 0) pre = max(pre, wsum[warp - 1]);
-#pragma unroll
-    for (int k = 0; k < CPT; ++k) {
-      const int j = j0 + k;
-      if (j < lr) {
-        h[k] = max(pre, v[k]) - c * (j + 1);
-        best = max(best, h[k]);
+        for (int k = 0; k < CPT; k += 4)
+          *reinterpret_cast<int4*>(hs + k) =
+              make_int4(h[k], h[k + 1], h[k + 2], h[k + 3]);
       }
     }
   }
-  best = block_max(best, red);
-  if (t == 0) out[blockIdx.x] = best;
+  best = __reduce_max_sync(FULL, best);
+  if (lane == 0) out[b] = best;
 }
 
-template <int CPT>
+template <int CPT, bool MULTI>
 int launch_rowwave(const void* qs, const void* rs, const void* table,
                    void* out, int B, int Lq, int Lr, int gap,
-                   cudaStream_t stream) {
-  const int cols = (Lr + CPT - 1) / CPT;
-  const int nt = ((cols + 31) / 32) * 32;
-  const size_t smem = static_cast<size_t>(Lq) + Lr;
-  int e = set_smem(reinterpret_cast<const void*>(rowwave_kernel<CPT>), smem);
+                   const RowwaveGeometry& g, cudaStream_t stream) {
+  auto kernel = rowwave_kernel<CPT, MULTI>;
+  int e = set_smem(reinterpret_cast<const void*>(kernel), g.smem);
   if (e) return e;
-  rowwave_kernel<CPT><<<B, nt, smem, stream>>>(
+  kernel<<<(B + g.ppb - 1) / g.ppb, g.ppb * 32, g.smem, stream>>>(
       static_cast<const int8_t*>(qs), static_cast<const int8_t*>(rs),
-      static_cast<const int32_t*>(table), static_cast<int32_t*>(out), Lq,
-      Lr, gap);
+      static_cast<const int32_t*>(table), static_cast<int32_t*>(out), B, Lq,
+      Lr, gap, g.segs);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // K7: (B, Lq) x (B, Lr) int8 residues -> (B,) int32 row-wave linear-gap SW
-// best scores. Columns per thread grow in powers of two so a block never
-// exceeds 256 threads; Lr up to 8192.
+// best scores (gap < 0). table: (21*21,) int32 BLOSUM62 (PAD is masked in
+// the kernel). cpt, segs, ppb and smem are rowwave_geometry(Lq, Lr) of
+// repro_torch/kernels/sw.py, checked here against this file's own; Lr up
+// to 8192. Returns the CUDA error code of the launch.
 extern "C" int sw_rowwave(const void* qs, const void* rs, const void* table,
-                          void* out, int B, int Lq, int Lr, int gap,
-                          void* stream) {
+                          void* out, int B, int Lq, int Lr, int gap, int cpt,
+                          int segs, int ppb, long smem, void* stream) {
   if (B == 0) return 0;
-  if (Lq < 1 || Lr < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (Lq < 1 || Lr < 1 || Lr > 8192 || gap >= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const RowwaveGeometry g = rw_geometry(Lr);
+  if (g.cpt != cpt || g.segs != segs || g.ppb != ppb || g.smem != smem)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int need = (Lr + 255) / 256;
-  if (need <= 1) return launch_rowwave<1>(qs, rs, table, out, B, Lq, Lr, gap, st);
-  if (need <= 2) return launch_rowwave<2>(qs, rs, table, out, B, Lq, Lr, gap, st);
-  if (need <= 4) return launch_rowwave<4>(qs, rs, table, out, B, Lq, Lr, gap, st);
-  if (need <= 8) return launch_rowwave<8>(qs, rs, table, out, B, Lq, Lr, gap, st);
-  if (need <= 16) return launch_rowwave<16>(qs, rs, table, out, B, Lq, Lr, gap, st);
-  if (need <= 32) return launch_rowwave<32>(qs, rs, table, out, B, Lq, Lr, gap, st);
+  if (g.segs > 1)
+    return launch_rowwave<32, true>(qs, rs, table, out, B, Lq, Lr, gap, g, st);
+#define K7_LAUNCH(C)                                                        \
+  if (g.cpt == (C))                                                         \
+    return launch_rowwave<C, false>(qs, rs, table, out, B, Lq, Lr, gap, g, st);
+  K7_LAUNCH(4) K7_LAUNCH(8) K7_LAUNCH(12) K7_LAUNCH(16)
+  K7_LAUNCH(20) K7_LAUNCH(24) K7_LAUNCH(28) K7_LAUNCH(32)
+#undef K7_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }

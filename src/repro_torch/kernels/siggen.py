@@ -4,22 +4,89 @@ Replaces the TPU kernel ``repro/kernels/siggen.py::siggen_accumulate_kernel``.
 The source note in ``csrc/siggen.cu`` gives the bound and the design. The
 plain twin is :func:`repro_torch.kernels.ref.siggen_accumulate_ref`; the
 routing wrapper is :func:`repro_torch.kernels.ops.signatures_fused`.
+
+The launch geometry (:func:`siggen_geometry`) and the layout of the
+codebook and hyperplanes for the int8 tensor cores (:func:`siggen_operands`,
+with the word order :func:`slot_word` that lets the first product's
+accumulators feed the second product as they stand) live here, where the
+CPU tests reach them; ``csrc/siggen.cu`` checks the geometry it is given.
 """
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
 from . import build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+SIGGEN_WARPS = 4     # warps per block
+SIGGEN_BW = 128      # codebook words per tile
+SIGGEN_PADB = 16     # row padding (bytes) of the shared tiles
+SIGGEN_DP_MAX = 128  # D up to this runs on the tensor cores
+
+
+@dataclass(frozen=True)
+class SiggenGeometry:
+    dp: int              # D zero-padded to a multiple of 32 (at least 64);
+                         # 0: D > SIGGEN_DP_MAX, the exact CUDA-core path
+    rows_per_block: int  # 4 warps of 16 rows x (2 for f <= 64, else 1)
+    words: int           # W zero-padded to the word tile
+    smem_bytes: int      # dynamic shared memory per block
+
+
+def siggen_geometry(D: int, W: int, f: int) -> SiggenGeometry:
+    """K1's launch geometry for rows (S, D), a (W, D) codebook and f
+    hyperplanes: the rows tile, two cb tiles and two transposed H tiles
+    in shared memory, each row padded by 16 bytes."""
+    bs = SIGGEN_WARPS * 16 * (2 if f <= 64 else 1)
+    if D > SIGGEN_DP_MAX:
+        return SiggenGeometry(dp=0, rows_per_block=bs, words=W,
+                              smem_bytes=SIGGEN_WARPS * f * 4)
+    dp = max(64, -(-D // 32) * 32)
+    words = -(-W // SIGGEN_BW) * SIGGEN_BW
+    smem = ((bs + 2 * SIGGEN_BW) * (dp + SIGGEN_PADB)
+            + 2 * f * (SIGGEN_BW + SIGGEN_PADB))
+    return SiggenGeometry(dp=dp, rows_per_block=bs, words=words,
+                          smem_bytes=smem)
+
+
+def slot_word(k):
+    """The word that sits at slot k of the second product, for an integer
+    array or tensor of slots (any shape). Thread (g, t) of an m16n8
+    accumulator holds words 8j + 2t and 8j + 2t + 1 of n8 tile j; the
+    m16n8k32 A fragment wants k slots 4t..4t+3 (tiles 0, 1) and
+    16 + 4t..16 + 4t+3 (tiles 2, 3) there, so slot 32c + 16h + 4t + m of
+    chunk c holds word 32c + 16h + 8(m >> 1) + 2t + (m & 1)."""
+    s = k & 31
+    return (k - s) + 16 * (s >> 4) + 8 * ((s & 3) >> 1) + 2 * ((s & 15) >> 2) \
+        + (s & 1)
+
+
+def siggen_operands(cb: torch.Tensor, H: torch.Tensor, geo: SiggenGeometry):
+    """cb and H in K1's tensor-core layout: cbp (words, dp) int8, cb zero-
+    padded; htp (f, words) int8, H's rows in :func:`slot_word` order,
+    transposed, zero past W; and cb_l1 (1,) int32, the largest L1 norm of
+    a codebook word (0 with no word)."""
+    W, D = cb.shape
+    f = H.shape[1]
+    dev = cb.device
+    cbp = torch.zeros((geo.words, geo.dp), dtype=torch.int8, device=dev)
+    cbp[:W, :D] = cb
+    hp = torch.zeros((geo.words, f), dtype=torch.int8, device=dev)
+    hp[:W] = H
+    # on the card alone (no host copy), so a CUDA graph can capture it
+    htp = hp[slot_word(torch.arange(geo.words, device=dev))].T.contiguous()
+    l1 = cb.to(torch.int32).abs().sum(1, dtype=torch.int32)
+    cb_l1 = torch.cat([l1, l1.new_zeros(1)]).amax().reshape(1)
+    return cbp, htp, cb_l1
 
 
 def siggen_accumulate(rows: torch.Tensor, cb: torch.Tensor, H: torch.Tensor,
                       T: int) -> torch.Tensor:
     """Launch K1: rows (S, D) int32, cb (W, D) int8, H (W, f) int8, all
-    contiguous on one CUDA device -> V (S, f) int32."""
+    contiguous on one CUDA device, T >= 1 -> V (S, f) int32."""
     if rows.dtype != torch.int32 or cb.dtype != torch.int8 \
             or H.dtype != torch.int8:
         raise TypeError("siggen_accumulate takes rows int32, cb int8, H int8")
@@ -32,13 +99,23 @@ def siggen_accumulate(rows: torch.Tensor, cb: torch.Tensor, H: torch.Tensor,
                          f"and H W={W}")
     if f % 32 or not 32 <= f <= 256:
         raise ValueError(f"siggen_accumulate takes f in 32..256 step 32, got {f}")
+    if T < 1:
+        raise ValueError("siggen_accumulate takes T >= 1 (a zero pad row or "
+                         "word must score below T)")
     if not (rows.is_contiguous() and cb.is_contiguous() and H.is_contiguous()):
         raise ValueError("siggen_accumulate takes contiguous operands")
     if not (rows.device == cb.device == H.device):
         raise ValueError("siggen_accumulate operands must share one device")
     out = torch.empty((S, f), dtype=torch.int32, device=rows.device)
+    geo = siggen_geometry(D, W, f)
+    cbp = htp = cb_l1 = None
+    if geo.dp:
+        cbp, htp, cb_l1 = siggen_operands(cb, H, geo)
     fn = build.function("siggen", "siggen_accumulate",
-                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+                        [_P] * 7 + [_I] * 7 + [ctypes.c_long, _P])
     build.launch(fn, rows.device, rows.data_ptr(), cb.data_ptr(),
-                 H.data_ptr(), out.data_ptr(), S, D, W, f, int(T))
+                 H.data_ptr(), *(None if t is None else t.data_ptr()
+                                 for t in (cbp, htp, cb_l1)),
+                 out.data_ptr(), S, D, W, geo.words, f, int(T), geo.dp,
+                 geo.smem_bytes)
     return out

@@ -24,7 +24,8 @@ from . import build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 MAX_LQ = 8192       # K3: 8 strips of 32 lanes x 32 rows
-MAX_LR = 8192       # 256 threads x 32 columns per thread (K7)
+MAX_LR = 8192       # K7: 8 segments of 32 lanes x 32 columns
+SMEM_BLOCK_MAX = 232_448   # shared memory a block can use on the H100
 
 # K3's launch geometry: csrc/sw.cu picks the same rows per lane; where the
 # strip buffers live is decided here (a scratch pointer or none)
@@ -59,6 +60,40 @@ def wave_geometry(Lq: int, Lr: int, affine: bool) -> WaveGeometry:
     return WaveGeometry(rpt=rpt, pairs_per_block=WAVE_WARPS, strips=strips,
                         smem_bytes=prof + (buf if in_smem else 0),
                         scratch_per_pair=0 if in_smem else nbuf * Lr)
+
+
+# K7's launch geometry, mirrored by csrc/sw.cu (rw_geometry), which checks
+# what the wrapper passes
+ROWWAVE_CPT = tuple(range(4, 33, 4))   # reference columns per lane, by Lr
+ROWWAVE_WARPS = 4                      # pairs (one warp each) per block, at most
+
+
+@dataclass(frozen=True)
+class RowwaveGeometry:
+    cpt: int               # reference columns per lane; a segment is 32 * cpt
+    segments: int          # segments of the widest reference (Lr)
+    pairs_per_block: int
+    smem_bytes: int        # dynamic shared memory per block
+
+
+def rowwave_geometry(Lq: int, Lr: int) -> RowwaveGeometry:
+    """K7's launch geometry for a (B, Lq) x (B, Lr) block: columns per
+    lane the smallest of ``ROWWAVE_CPT`` whose 32 lanes hold Lr columns
+    (else the largest, in several segments); per warp a 21 x 32 x cpt int8
+    reference profile per segment and, with more than one segment, the H
+    row (int32) and a PAD mask word per lane of each segment; as many
+    pairs per block (4, 2 or 1) as shared memory holds beside the BLOSUM
+    table. Lq does not enter: the rows are the warp's loop."""
+    cpt = next((c for c in ROWWAVE_CPT if 32 * c >= Lr), ROWWAVE_CPT[-1])
+    cols = 32 * cpt
+    segments = -(-Lr // cols)
+    per_warp = 21 * cols * segments
+    if segments > 1:
+        per_warp += (4 * cols + 4 * 32) * segments
+    avail = SMEM_BLOCK_MAX - 4 * 21 * 21
+    ppb = next(p for p in (ROWWAVE_WARPS, 2, 1) if p * per_warp <= avail)
+    return RowwaveGeometry(cpt=cpt, segments=segments, pairs_per_block=ppb,
+                           smem_bytes=ppb * per_warp)
 
 
 @functools.lru_cache(maxsize=8)
@@ -136,9 +171,12 @@ def sw_rowwave(qs: torch.Tensor, rs: torch.Tensor, *,
     if gap >= 0:
         raise ValueError("sw_rowwave takes a negative gap penalty")
     out = torch.empty((B,), dtype=torch.int32, device=qs.device)
+    geo = rowwave_geometry(Lq, Lr)
     fn = build.function("sw", "sw_rowwave",
-                        [_P, _P, _P, _P, _I, _I, _I, _I, _P])
+                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                         ctypes.c_long, _P])
     build.launch(fn, qs.device, qs.data_ptr(), rs.data_ptr(),
                  _table(qs.device, False).data_ptr(), out.data_ptr(), B, Lq,
-                 Lr, int(gap))
+                 Lr, int(gap), geo.cpt, geo.segments, geo.pairs_per_block,
+                 geo.smem_bytes)
     return out

@@ -57,22 +57,72 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# K1 at k in {2, 3, 4} (D = 42, 63, 84: Dp 64, 64, 96), f from 32 to 256,
+# T at 1, the paper's 13, and both sides of the largest k=4 score (44); S
+# not a multiple of the 128 or 64 rows a block, and W not a multiple of
+# the 128-word tile (400, 8,000, and a cut of k=4's 160,000 words)
 @pytest.mark.cuda
-def test_siggen_kernel_matches_twin_on_card(cuda_device):
-    t = [a.to(cuda_device) for a in _siggen_inputs(1000, 3, 64, 11)]
+@pytest.mark.parametrize("T", [1, 13, 44, 45])
+@pytest.mark.parametrize("k,f,W", [(2, 32, None), (2, 256, None),
+                                   (3, 32, None), (3, 64, None),
+                                   (3, 128, None), (4, 96, 159_963),
+                                   (4, 256, 159_963)])
+def test_siggen_kernel_matches_twin_on_card(cuda_device, k, f, W, T):
+    rows, cb, H = _siggen_inputs(1000, k, f, 11 + k)
+    t = [a.to(cuda_device) for a in (rows, cb[:W].contiguous(),
+                                     H[:W].contiguous())]
     ops.reset_launches()
     ops.RECORDED = {}
     try:
-        got = ops.signatures_fused(*t, T=13)
-        ops.signatures_fused(*t, T=14)
+        got = ops.signatures_fused(*t, T=T)
+        ops.signatures_fused(*t, T=T + 1)
         recorded = ops.RECORDED
     finally:
         ops.RECORDED = None
     assert ops.LAUNCHES["siggen_accumulate"] == 2
     args, kw = recorded["siggen_accumulate"]        # the first launch only
-    assert kw == {"T": 13} and all(torch.equal(a, b) for a, b in zip(args, t))
+    assert kw == {"T": T} and all(torch.equal(a, b) for a, b in zip(args, t))
     np.testing.assert_array_equal(
-        got.cpu().numpy(), ref.siggen_accumulate_ref(*t, 13).cpu().numpy())
+        got.cpu().numpy(), ref.siggen_accumulate_ref(*t, T).cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["kept_above_127", "row_above_int8",
+                                  "dense_codebook", "mixed_blocks",
+                                  "d_128", "d_above_128"])
+def test_siggen_kernel_is_exact_outside_int8_on_card(cuda_device, case):
+    """Inputs off the path. Where kept scores or row values leave int8
+    (the first four cases) the blocks whose bound leaves the byte form take
+    the exact CUDA-core path, beside blocks on the tensor cores, so K1
+    equals its twin with no silent wrap; D = 128 is the widest byte form
+    (Dp = 128) and D = 150 runs the exact path throughout."""
+    rng = np.random.default_rng(7)
+    rows, cb, H = _siggen_inputs(700, 3, 64, 5)
+    if case == "kept_above_127":        # scores up to 3 x 90
+        rows = rows * 8
+    elif case == "row_above_int8":
+        rows[::50, 3] = 1000
+    elif case == "dense_codebook":      # several nonzero entries a word
+        cb = torch.from_numpy(rng.integers(-3, 4, cb.shape).astype(np.int8))
+    elif case == "mixed_blocks":        # one block of 128 rows off the byte form
+        rows[130:140] = rows[130:140] * 20
+    else:                               # D = 128 or 150, 4 ones a word
+        D = 128 if case == "d_128" else 150
+        rows = torch.from_numpy(rng.integers(-4, 12, (300, D))
+                                .astype(np.int32))
+        onehot = np.zeros((500, D), np.int8)
+        for w in range(500):
+            onehot[w, rng.choice(D, 4, replace=False)] = 1
+        cb = torch.from_numpy(onehot)
+        H = H[:500].contiguous()
+    t = [a.to(cuda_device) for a in (rows.contiguous(), cb, H)]
+    got = ops.signatures_fused(*t, T=13)
+    want = ref.siggen_accumulate_ref(*t, 13)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    if case not in ("d_128", "d_above_128"):
+        s = ref._exact_mm(t[0], t[1].to(torch.int32).T)
+        assert int(torch.where(s >= 13, s, 0).max()) > 127 or \
+            int(t[0].abs().max()) > 127
 
 
 @pytest.mark.cuda
@@ -226,6 +276,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         ops.wavefront_scores(s.t().contiguous().t(), s)
     with pytest.raises(ValueError):          # CPU and CUDA mixed
         ops.wavefront_scores(s, s.cpu())
+    from repro_torch.kernels.siggen import siggen_accumulate
+    rows = torch.zeros((4, 63), dtype=torch.int32, device=cuda_device)
+    cb = torch.zeros((8, 63), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError):          # T below 1
+        siggen_accumulate(rows, cb, cb[:, :32].contiguous(), 0)
 
 
 @pytest.mark.cuda
@@ -248,12 +303,24 @@ def test_ungapped_kernel_matches_twin_on_card(cuda_device, x, B, Lq, Lr):
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
 
 
+# K7: (B, Lq, Lr) with B = 9 (the first cases), B = 1, and B = 7, not a
+# multiple of the 4 (or 2, or 1) pairs a block; Lr at the columns-per-lane
+# steps (32, 384 = 12 a lane) and past one 1,024-column segment up to 8,192;
+# Lq of one row, the all-pairs width and past it
+_ROWWAVE_SHAPES = [(9, 40, 30), (9, 300, 250), (9, 250, 300),
+                   (9, 100, 1100)] + [
+    (B, Lq, Lr) for Lq in (1, 384, 2000)
+    for Lr in (1, 31, 32, 33, 383, 384, 385, 1023, 1024, 1025, 8192)
+    for B in (1, 7)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("Lq,Lr", [(40, 30), (300, 250), (250, 300),
-                                   (100, 1100)])
-def test_rowwave_kernel_matches_twin_and_wavefront_on_card(cuda_device, Lq,
-                                                           Lr):
-    qs, rs = _pairs(9, Lq, Lr, Lq * 7 + Lr)
+@pytest.mark.parametrize("B,Lq,Lr", _ROWWAVE_SHAPES)
+def test_rowwave_kernel_matches_twin_and_wavefront_on_card(cuda_device, B,
+                                                           Lq, Lr):
+    """Ragged PAD tails, PAD inside both sides, an all-PAD pair inside the
+    block (B > 1) and a near-copy first pair; K7 == its twin == K3."""
+    qs, rs = _wave_block(B, Lq, Lr, Lq * 7 + Lr + B)
     q, r = torch.from_numpy(qs).to(cuda_device), torch.from_numpy(rs).to(
         cuda_device)
     ops.reset_launches()
@@ -263,6 +330,28 @@ def test_rowwave_kernel_matches_twin_and_wavefront_on_card(cuda_device, Lq,
         got.cpu().numpy(), ops.sw_rowwave_scores(q.cpu(), r.cpu()).numpy())
     np.testing.assert_array_equal(
         got.cpu().numpy(), ops.wavefront_scores(q, r).cpu().numpy())
+    if B > 1:
+        assert int(got[B // 2]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lr", [384, 2100])
+def test_rowwave_kernel_first_row_at_lane_boundaries_on_card(cuda_device,
+                                                            Lr):
+    """A one-residue query (W) against a reference that holds W only at the
+    first column of every lane (and of every 1,024-column segment): the
+    best is W's self score, taken on row 0 from the boundary's diagonal."""
+    from repro_torch.kernels.sw import rowwave_geometry
+    cpt = rowwave_geometry(1, Lr).cpt
+    r = np.full((3, Lr), 7, np.int8)                # G, which scores -2 vs W
+    r[0, ::cpt] = 17                                # W at each lane start
+    r[1, 1024::1024] = 17 if Lr > 1024 else 7
+    q = np.full((3, 1), 17, np.int8)
+    qc, rc = torch.from_numpy(q), torch.from_numpy(r)
+    got = ops.sw_rowwave_scores(qc.to(cuda_device), rc.to(cuda_device))
+    want = ops.sw_rowwave_scores(qc, rc)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert int(want[0]) == 11
 
 
 def _slabs(rng, nb, U, E, pad_u=0, pad_e=0, empty_band=False):

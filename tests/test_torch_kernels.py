@@ -89,6 +89,97 @@ def test_siggen_rejects_threshold_below_one():
                              torch.from_numpy(H), T=0)
 
 
+@pytest.mark.parametrize("D", [0, 21, 42, 63, 64, 65, 84, 96, 97, 128,
+                               129, 300])
+def test_siggen_geometry(D):
+    """K1's launch geometry: D zero-padded to a multiple of 32 (at least
+    64) up to 128, else the exact path (dp 0, f ints a warp of shared
+    memory); 128 rows a block for f <= 64, else 64; W padded to the 128-word
+    tile; shared memory within the card's 227 KB a block."""
+    from repro_torch.kernels.siggen import (SIGGEN_BW, SIGGEN_DP_MAX,
+                                            siggen_geometry)
+    for f in range(32, 257, 32):
+        for W in (1, 400, 8000, 8001, 160_000):
+            g = siggen_geometry(D, W, f)
+            assert g.rows_per_block == (128 if f <= 64 else 64)
+            if D > SIGGEN_DP_MAX:
+                assert (g.dp, g.words, g.smem_bytes) == (0, W, 4 * f * 4)
+                continue
+            assert g.dp % 32 == 0 and g.dp >= max(D, 64)
+            assert g.dp - 32 < max(D, 33)
+            assert g.words % SIGGEN_BW == 0 and 0 <= g.words - W < SIGGEN_BW
+            assert g.smem_bytes == ((g.rows_per_block + 2 * SIGGEN_BW)
+                                    * (g.dp + 16) + 2 * f * (SIGGEN_BW + 16))
+            assert g.smem_bytes <= 232_448
+
+
+def test_siggen_slot_word_is_the_fragment_hand_off():
+    """Thread (g, t) holds accumulator words 8j + 2t + e (e = 0, 1) of each
+    n8 tile j; packed in the kernel's order they are A-fragment slots
+    4t..4t+3 (tiles 0, 1) and 16 + 4t.. (tiles 2, 3): slot_word maps each
+    slot to the word that sits there, one to one within each 32-word
+    chunk, the same on numpy arrays and torch tensors."""
+    from repro_torch.kernels.siggen import slot_word
+    perm = slot_word(np.arange(96))
+    assert np.array_equal(slot_word(torch.arange(96)).numpy(), perm)
+    for c in range(3):
+        assert sorted(perm[32 * c:32 * c + 32] - 32 * c) == list(range(32))
+    for t in range(4):
+        held = [8 * j + 2 * t + e for j in (0, 1) for e in (0, 1)]
+        assert perm[4 * t:4 * t + 4].tolist() == held
+        assert perm[16 + 4 * t:20 + 4 * t].tolist() == [w + 16 for w in held]
+
+
+def _k1_emulate(rows, cb, H, T):
+    """numpy emulation of ``csrc/siggen.cu``'s byte form, fragment by
+    fragment: product 1's m16n8 accumulators (started at -T) of a 32-word
+    chunk, narrowed to bytes, thresholded with the sign-byte mask, placed
+    as product 2's m16n8k32 A fragment and multiplied with the wrapper's
+    transposed, slot_word-ordered H (the inputs here never leave the byte
+    form)."""
+    from repro_torch.kernels.siggen import siggen_geometry, siggen_operands
+    S, D = rows.shape
+    W, f = H.shape
+    geo = siggen_geometry(D, W, f)
+    cbp, htp, cb_l1 = (t.numpy().astype(np.int64) for t in siggen_operands(
+        torch.from_numpy(cb), torch.from_numpy(H), geo))
+    bs = geo.rows_per_block
+    g, t = np.arange(32) >> 2, np.arange(32) & 3
+    V = np.zeros((-(-S // bs) * bs, f), np.int64)
+    for row0 in range(0, S, bs):
+        x = np.zeros((bs, geo.dp), np.int64)
+        blk = rows[row0:row0 + bs]
+        x[:len(blk), :D] = blk
+        bound = int(np.abs(x).max()) * int(cb_l1[0])
+        assert np.abs(x).max() <= 127 and bound + T <= 128
+        for m0 in range(0, bs, 16):
+            for c0 in range(0, geo.words, 32):
+                sc = x[m0:m0 + 16] @ cbp[c0:c0 + 32].T - T      # (16, 32)
+                A2 = np.zeros((16, 32), np.int64)
+                for reg in range(4):      # a0..a3: rows g, g+8; slots +0, +16
+                    rows_ = g + 8 * (reg & 1)
+                    tiles = (0, 1) if reg < 2 else (2, 3)
+                    held = [sc[rows_, 8 * j + 2 * t + e]
+                            for j in tiles for e in (0, 1)]
+                    for byte, val in enumerate(held):
+                        P = val & 0xFF
+                        keep = np.where(P >= 128, 0, 0xFF)
+                        kept = (P & keep) + (T & keep)
+                        assert (kept < 128).all()
+                        A2[rows_, 16 * (reg >> 1) + 4 * t + byte] = kept
+                V[row0 + m0:row0 + m0 + 16] += A2 @ htp[:, c0:c0 + 32].T
+    return V[:S].astype(np.int32)
+
+
+@pytest.mark.parametrize("S,k,f,T", [(150, 2, 32, 8), (70, 3, 64, 13),
+                                     (20, 2, 96, 1), (40, 2, 32, 23)])
+def test_siggen_fragment_emulation_matches_twin(S, k, f, T):
+    rows, cb, H = _siggen_inputs(S, k, f, S + k)
+    want = ref.siggen_accumulate_ref(*(torch.from_numpy(a)
+                                       for a in (rows, cb, H)), T).numpy()
+    np.testing.assert_array_equal(_k1_emulate(rows, cb, H, T), want)
+
+
 # ------------------------------------------------------------ K2 hamming
 @pytest.mark.parametrize("Q,R,nw", [(8, 8, 1), (37, 61, 2), (5, 300, 4)])
 def test_hamming_twin_matches_pallas_kernel(Q, R, nw):
@@ -390,6 +481,32 @@ def test_wave_geometry(Lq):
             assert g.smem_bytes == 4 * 21 * 32 * g.rpt + (
                 buf if g.strips > 1 and not spill else 0)
             assert g.smem_bytes <= 232_448
+
+
+@pytest.mark.parametrize("Lr", [1, 31, 32, 33, 128, 129, 383, 384, 385,
+                                1023, 1024, 1025, 2048, 2049, 4096, 4097,
+                                8192])
+def test_rowwave_geometry(Lr):
+    """K7's launch geometry: the fewest columns per lane (a multiple of 4)
+    whose 32 lanes hold Lr (else 32 and more segments, at most 8), per warp
+    a 21 x 32 x cpt int8 profile a segment plus, past one segment, the H
+    row and a mask word a lane; 4, 2 or 1 pairs a block, as many as fit the
+    card's 227 KB beside the BLOSUM table; Lq does not enter."""
+    from repro_torch.kernels.sw import (MAX_LR, ROWWAVE_CPT,
+                                        rowwave_geometry)
+    g = rowwave_geometry(1, Lr)
+    assert all(rowwave_geometry(Lq, Lr) == g for Lq in (384, 8192))
+    fits = [c for c in ROWWAVE_CPT if 32 * c >= Lr]
+    assert g.cpt == (fits[0] if fits else ROWWAVE_CPT[-1])
+    assert g.segments == -(-Lr // (32 * g.cpt))
+    assert (g.segments > 1) == (Lr > 32 * ROWWAVE_CPT[-1])
+    assert g.segments <= MAX_LR // (32 * ROWWAVE_CPT[-1])
+    per_warp = 21 * 32 * g.cpt * g.segments + (
+        (4 * 32 * g.cpt + 4 * 32) * g.segments if g.segments > 1 else 0)
+    assert g.smem_bytes == g.pairs_per_block * per_warp
+    room = 232_448 - 4 * 21 * 21
+    assert g.smem_bytes <= room
+    assert g.pairs_per_block == 4 or 2 * g.smem_bytes > room
 
 
 # ------------------------------------------------------------ routing
