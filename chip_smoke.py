@@ -60,13 +60,28 @@ Phases, any failure exits non-zero:
               and the default PID route), ``ScalLoPS.search`` with each
               join and a flip index's ``topk_probe``, on the card and on
               the CPU (the twins): identical outputs.
+9. wide     — widths and lengths past the kernels' old limits: f = 512
+              (16 words) at NC_000913 scale through K1 (``siggen_method=
+              "matmul"``, one launch per 256-column slice), the dense
+              top-k (K2) and the dense join at d=1 (K6, then K2), card ==
+              CPU; chains of 8,193, 12,000 and 34,350 residues planted in
+              a 1,000-ref index and served with the SW re-rank (K3 past
+              8,192 query rows, linear and affine), and in a small family
+              corpus clustered by ``all_pairs_search`` with the row wave
+              (K7 past 8,192 columns) and the wavefront, which must agree;
+              each kernel held against its twin on the card at the inputs
+              these paths gave it, and card == CPU where the CPU twins
+              finish in seconds (the 34,350 query against short refs; the
+              corpus without the 34,350 chain).
 
 Each path is driven with every launch count set to 0 just before it and
 read just after it: serving (phase 2), each join's ``search_pairs``
 (phase 3; the dense join's is K6's path), the K1 build (phase 4), and in
 phase 5 the timed ``all_pairs_search`` (the all-pairs main path), the row
 wave over the survivors (K7's path), the base run and the ingest, each on
-its own. The kernel wrappers record their first inputs throughout phases
+its own, and in phase 9 each wide or long path. K2's row also times both
+store variants at the serving batch and at the dense join's first
+emission tile. The kernel wrappers record their first inputs throughout phases
 2-5. The build logs ptxas's registers and spills of every sw.cu
 and siggen.cu kernel. The output ends with the card's ``nvidia-smi`` name
 and power limit, one JSON line of kernels, and the ``ok`` line. Needs one CUDA
@@ -114,6 +129,8 @@ PAIR_BUDGET = 1 << 28
 BAND_SLOT_BUDGET = 1 << 29
 MAX_GROW = 1 << 28      # search_pairs' capacity limit in phase 3
 JOIN_ROUTE_ROWS = 40_000  # <= PACKED_KEY_MAX_ID: both pack routes apply
+WIDE_F = 512            # [wide]: signature bits past 256 (16 words)
+LONG_CHAINS = (8_193, 12_000, 34_350)   # [wide]: residues (titin ~34,350)
 
 
 def _dataset(name: str) -> dict:
@@ -129,10 +146,10 @@ def _fail(msg: str) -> int:
 
 
 def _log_ptxas(build, log):
-    """One line per kernel of sw.cu and siggen.cu: what ptxas reported for
-    it (``-Xptxas -v``), names demangled by c++filt where the machine has
+    """One line per kernel of every source: what ptxas reported for it
+    (``-Xptxas -v``), names demangled by c++filt where the machine has
     it."""
-    for src in ("sw", "siggen"):
+    for src in build.SOURCES:
         usage = build.resource_usage(src)
         names = list(usage)
         try:
@@ -371,7 +388,7 @@ def _timed_search(torch, sl, q, r, mp):
 def phase_search(torch, ops, dev, index, serve_data, serve_probe, log):
     """Job 2 at the metagenomic scale against the Swiss-Prot index of
     phase 2. Returns the dense join's ``search_pairs`` launches (K6's
-    path)."""
+    path) and the inputs of its first emission tile (K2)."""
     from repro_torch.configs.scallops import perf_config
     from repro_torch.core.pipeline import ScalLoPS
     from repro_torch.data.synthetic import (SyntheticProteinConfig,
@@ -401,6 +418,7 @@ def phase_search(torch, ops, dev, index, serve_data, serve_probe, log):
     cfg = index.cfg
     r_sigs = index.device_sigs
     runs, launches = {}, {}
+    emission = None
     for join in ("flip", "band", "dense"):
         jcfg = replace(cfg, join_method=join)
         eng = QueryEngine(SignatureIndex(jcfg, index.sigs, index.valid,
@@ -412,8 +430,16 @@ def phase_search(torch, ops, dev, index, serve_data, serve_probe, log):
         torch.cuda.synchronize()
         job1_s = time.perf_counter() - t0
         t0 = time.perf_counter()
+        # the dense join's first K2 launch is an emission tile: keep its
+        # inputs apart from the serving batch that K2's row replays
+        outer, ops.RECORDED = ops.RECORDED, {}
         res, lw = _window(torch, ops, lambda: eng.search_pairs(
             qi, ql, max_grow=MAX_GROW))
+        inner, ops.RECORDED = ops.RECORDED, outer
+        if join == "dense":
+            emission = inner.get("hamming_dist")
+        for name, rec in inner.items():
+            outer.setdefault(name, rec)
         pairs_s = time.perf_counter() - t0
         if bool(res.overflowed):
             raise AssertionError(f"{join}: search_pairs still overflowed at "
@@ -433,6 +459,8 @@ def phase_search(torch, ops, dev, index, serve_data, serve_probe, log):
             f"search_pairs {lw['hamming_count']}/{lw['hamming_dist']}")
     if launches["dense"]["hamming_count"] <= 0:
         raise AssertionError("the dense join never launched K6")
+    if emission is None:
+        raise AssertionError("the dense join emitted no K2 tile")
     (mkeys, mdist), (keys, dist) = runs["flip"]
     for join in ("band", "dense"):
         for (k1, d1), (k2, d2), what in ((runs[join][0], (mkeys, mdist),
@@ -550,7 +578,7 @@ def phase_search(torch, ops, dev, index, serve_data, serve_probe, log):
         f"neighbours == the band index's ({sum(map(len, a))})")
     del fidx, eng
     torch.cuda.empty_cache()
-    return launches["dense"]
+    return launches["dense"], emission
 
 
 def phase_siggen(torch, ops, dev, log):
@@ -1069,8 +1097,49 @@ def _check_and_time(torch, name, args, kw, run, twin, reps, twin_reps):
     return (got, err, ms, plain_ms) + _bounds(name, args, kw)
 
 
+def _k2_variants(torch, serve_args, emission, log):
+    """K2's two store variants (16-byte streaming stores; bulk copies of
+    staged rows) at the serving batch and at the dense join's first
+    emission tile: each checked exactly against the twin and timed. The
+    JSON keys of K2's row."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.hamming import BULK_MIN_ROWS, hamming_dist
+    out = {}
+    for where, (q, r) in (("", serve_args), ("emission_", emission[0])):
+        want = ref.hamming_dist_ref(q, r)
+        times = {}
+        for bulk in (False, True):
+            got = hamming_dist(q, r, bulk=bulk)
+            if not torch.equal(got, want):
+                raise AssertionError(f"K2 (bulk={bulk}) at {tuple(q.shape)} x"
+                                     f" {tuple(r.shape)} disagrees with its "
+                                     f"twin")
+            del got
+            times[bulk] = _graph_ms(
+                torch, lambda: hamming_dist(q, r, bulk=bulk), 20)
+        del want
+        bound, _ = _bounds("hamming_dist", (q, r), {})
+        bulk = q.shape[0] >= BULK_MIN_ROWS   # the wrapper's choice
+        what = ("the dense join's first emission tile" if where
+                else "the serving batch")
+        log(f"[kernels] hamming_dist variants at {tuple(q.shape)} x "
+            f"{tuple(r.shape)} ({what}): "
+            f"exact vs twin; streaming stores {times[False]:.4f} ms, bulk "
+            f"copies {times[True]:.4f} ms (device, 20 launches in one CUDA "
+            f"graph), bound {bound * 1e3:.3f} us; the wrapper launches "
+            f"{'bulk copies' if bulk else 'streaming stores'}")
+        out[f"{where}ms_stores"] = times[False]
+        out[f"{where}ms_bulk"] = times[True]
+        if where:
+            out["emission_ms"] = times[bulk]
+            out["emission_bound_ms"] = bound
+            out["emission_shape"] = [list(q.shape), list(r.shape)]
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_kernels(torch, recorded, full, real, stages, launches, wave_l,
-                  log):
+                  emission, log):
     from repro_torch.core.alphabet import PAD
     from repro_torch.kernels import ref
     from repro_torch.kernels.hamming import hamming_count, hamming_dist
@@ -1108,6 +1177,8 @@ def phase_kernels(torch, recorded, full, real, stages, launches, wave_l,
         if name == "siggen_accumulate":
             _siggen_int_mm(torch, args, kw, got, log)
         del got
+        extra = (_k2_variants(torch, args, emission, log)
+                 if name == "hamming_dist" else {})
         shapes = " x ".join(str(tuple(a.shape)) for a in args)
         log(f"[kernels] {name} at {shapes}{' ' + json.dumps(kw) if kw else ''}"
             f": exact vs twin; kernel "
@@ -1119,7 +1190,7 @@ def phase_kernels(torch, recorded, full, real, stages, launches, wave_l,
                    replaces=replaces, launches=launches[name],
                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
                    bound_ms=bound_ms, bound_by=bound_by,
-                   library_ms=library_ms)
+                   library_ms=library_ms, **extra)
         if name in real:
             # the all-pairs waves: a full wave and the first wave as the
             # plan fills it, each its own check and time
@@ -1150,6 +1221,261 @@ def phase_kernels(torch, recorded, full, real, stages, launches, wave_l,
         rows.append(row)
         torch.cuda.empty_cache()
     return rows
+
+
+def _rows(seqs, width=None):
+    """Sequences as one (N, width) int8 block, PAD past each length, and
+    their (N,) int32 lengths."""
+    from repro_torch.core.alphabet import PAD
+    width = width or max(len(x) for x in seqs)
+    ids = np.full((len(seqs), width), PAD, np.int8)
+    for i, x in enumerate(seqs):
+        ids[i, :len(x)] = x
+    return ids, np.asarray([len(x) for x in seqs], np.int32)
+
+
+def _trim_pairs(torch, qs, rs):
+    """The pairs of a (B, Lq) x (B, Lr) block with a residue on both sides,
+    cut to the longest such residue run on each side (trailing all-PAD
+    columns only decay, so every score is unchanged); and their rows."""
+    from repro_torch.core.alphabet import PAD
+    qn, rn = qs != PAD, rs != PAD
+    keep = torch.nonzero(qn.any(1) & rn.any(1))[:, 0]
+    col = lambda m: int((m * torch.arange(1, m.shape[1] + 1,
+                                          device=m.device)).amax())
+    q, r = qs[keep], rs[keep]
+    return (q[:, :col(qn[keep])].contiguous(),
+            r[:, :col(rn[keep])].contiguous(), keep)
+
+
+def phase_wide(torch, ops, dev, log):
+    """[wide]: f = 512 at NC_000913 scale (K1, K2, K6 past 8 words) and
+    chains past 8,192 residues (K3 past 8,192 query rows, K7 past 8,192
+    reference columns). Each path's launches counted on its own, each
+    kernel held against its twin on the card at the inputs the path gave
+    it, and card == CPU where the CPU twins can finish in seconds. Returns
+    per kernel the JSON keys of its new shapes."""
+    from repro_torch.allpairs import all_pairs_search
+    from repro_torch.core.alphabet import PAD
+    from repro_torch.core.pipeline import LSHConfig, ScalLoPS
+    from repro_torch.data.synthetic import (FamilyCorpusConfig,
+                                            SyntheticProteinConfig,
+                                            make_family_corpus,
+                                            make_protein_sets, mutate,
+                                            random_protein)
+    from repro_torch.index.service import QueryEngine, ServingConfig
+    from repro_torch.index.store import SignatureIndex
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.hamming import hamming_count, hamming_dist
+    from repro_torch.kernels.siggen import siggen_accumulate
+    from repro_torch.kernels.sw import sw_rowwave, wave_scores
+    from repro_torch.obs import trace
+
+    t_start = time.perf_counter()
+    keys = {}
+
+    def replay(name, run, twin, args, kw, reps, what):
+        got, err, ms, plain_ms, bound_ms, by = _check_and_time(
+            torch, name, args, kw, run, twin, reps, 0)
+        shapes = " x ".join(str(tuple(a.shape)) for a in args)
+        log(f"[wide] {name} at {shapes} ({what}): exact vs twin; kernel "
+            f"{ms:.4f} ms (device, {reps} launches in one CUDA graph), twin "
+            f"{plain_ms:.4f} ms, bound {bound_ms * 1e3:.3f} us ({by})")
+        keys.setdefault(name, {}).update(
+            {"wide_shape": [list(a.shape) for a in args], "wide_ms": ms,
+             "wide_plain_ms": plain_ms, "wide_bound_ms": bound_ms})
+        return got
+
+    # --- f = 512 (16 words) at NC_000913 scale
+    nc = _dataset("NC_000913")
+    data = make_protein_sets(SyntheticProteinConfig(
+        n_refs=nc["n"], ref_len_mean=nc["avg_len"], ref_len_std=80,
+        n_homolog_queries=24, n_decoy_queries=8, seed=0))
+    refs = (data["ref_ids"], data["ref_lens"])
+    # 32 queries and 32 copies of refs (distance 0: pairs for the join)
+    qi, ql = _rows([x[:n] for x, n in zip(data["query_ids"],
+                                          data["query_lens"])]
+                   + [x[:n] for x, n in zip(refs[0][:32], refs[1][:32])])
+    cfg = LSHConfig(k=3, T=13, f=WIDE_F, d=1, scheme="splitmix",
+                    siggen_method="matmul")
+    table_cfg = replace(cfg, siggen_method="table")
+    outer, ops.RECORDED = ops.RECORDED, {}
+    idx, l_sig = _window(torch, ops, lambda: SignatureIndex.build(
+        cfg, *refs, device=dev))
+    table = ScalLoPS(table_cfg, device=dev).signatures(*refs)
+    if not np.array_equal(idx.sigs, table.cpu().numpy().view(np.uint32)):
+        raise AssertionError(f"f={WIDE_F}: K1 signatures differ from the "
+                             f"table path")
+    eng = QueryEngine(idx, ServingConfig(k=10, mode="dense"))
+    (nid, nd), l_top = _window(torch, ops, lambda: eng.query_batch(qi, ql))
+    cpu_idx = SignatureIndex(table_cfg, idx.sigs, idx.valid, device="cpu")
+    cid, cd = QueryEngine(cpu_idx, ServingConfig(k=10, mode="dense")) \
+        .query_batch(qi, ql)
+    if not (np.array_equal(nid, cid) and np.array_equal(nd, cd)):
+        raise AssertionError(f"f={WIDE_F}: dense top-k, card != CPU")
+    jcfg = replace(cfg, join_method="dense")
+    jeng = QueryEngine(SignatureIndex(jcfg, idx.sigs, idx.valid, device=dev))
+    res, l_join = _window(torch, ops, lambda: jeng.search_pairs(qi, ql))
+    cres = QueryEngine(SignatureIndex(replace(jcfg, siggen_method="table"),
+                                      idx.sigs, idx.valid, device="cpu")) \
+        .search_pairs(qi, ql)
+    for what, x, y in zip(res._fields, res, cres):
+        if not torch.equal(x.cpu(), y):
+            raise AssertionError(f"f={WIDE_F}: dense join, card != CPU in "
+                                 f"{what}")
+    rec, ops.RECORDED = ops.RECORDED, outer
+    n_zero = int((nd[:, 0] == 0).sum())
+    log(f"[wide] f={WIDE_F}: {nc['n']} refs built through K1 (launches "
+        f"{json.dumps(l_sig)}) == the table path; dense top-k of {len(ql)} "
+        f"queries (launches {json.dumps(l_top)}; {n_zero} at distance 0) "
+        f"and the dense join at d=1 ({int(res.count)} pairs; launches "
+        f"{json.dumps(l_join)}): card == CPU")
+    if l_sig["siggen_accumulate"] <= 0 or l_top["hamming_dist"] <= 0 or \
+            l_join["hamming_count"] <= 0 or l_join["hamming_dist"] <= 0:
+        raise AssertionError(f"f={WIDE_F}: a kernel did not launch")
+    replay("siggen_accumulate", siggen_accumulate, ref.siggen_accumulate_ref,
+           *rec["siggen_accumulate"], 5, f"f={WIDE_F}, the K1 build")
+    replay("hamming_dist", hamming_dist, ref.hamming_dist_ref,
+           *rec["hamming_dist"], 20, f"f={WIDE_F}, the dense top-k")
+    replay("hamming_count", hamming_count, _count_twin,
+           *rec["hamming_count"], 20, f"f={WIDE_F}, the dense join")
+    keys["launches"] = {"f512_build": l_sig, "f512_topk": l_top,
+                        "f512_join": l_join}
+    del idx, eng, jeng, res, cres, table, data
+
+    # --- chains past 8,192 residues: serving with the SW re-rank
+    rng = np.random.default_rng(16)
+    base = make_protein_sets(SyntheticProteinConfig(
+        n_refs=1000, ref_len_mean=150, ref_len_std=40, n_homolog_queries=0,
+        n_decoy_queries=0, seed=5))
+    chains = [random_protein(rng, n) for n in LONG_CHAINS]
+    short = [x[:n] for x, n in zip(base["ref_ids"], base["ref_lens"])]
+    r_ids, r_lens = _rows(short + chains)
+    # near copies of the 12,000 and 34,350 chains (they re-rank their
+    # source first) and an unrelated chain of 8,193
+    queries = [mutate(rng, chains[1], sub_rate=0.01),
+               mutate(rng, chains[2], sub_rate=0.01),
+               random_protein(rng, LONG_CHAINS[0])]
+    q_ids, q_lens = _rows(queries)
+    scfg = LSHConfig(k=3, T=13, f=32, d=1, scheme="splitmix")
+    sidx = SignatureIndex.build(scfg, r_ids, r_lens, device=dev)
+    long_ids = [len(short) + i for i in range(len(chains))]
+    for gm in ("linear", "affine"):
+        name = f"wave_scores_{gm}"
+        eng = QueryEngine(sidx, ServingConfig(k=4, mode="dense", rerank=True,
+                                              gap_mode=gm),
+                          ref_seqs=(r_ids, r_lens))
+        outer, ops.RECORDED = ops.RECORDED, {}
+        (nid, nd), l_rr = _window(torch, ops,
+                                  lambda: eng.query_batch(q_ids, q_lens))
+        rec, ops.RECORDED = ops.RECORDED, outer
+        if l_rr[name] <= 0:
+            raise AssertionError(f"the long re-rank never launched {name}")
+        if list(nid[:2, 0]) != long_ids[1:]:
+            raise AssertionError(f"{gm}: the near copies re-rank "
+                                 f"{list(nid[:2, 0])} first, not their "
+                                 f"sources {long_ids[1:]}")
+        (qs, rs), kw = rec[name]
+        full = wave_scores(qs, rs, **kw)
+        tq, tr, keep = _trim_pairs(torch, qs, rs)
+        got = replay(name, wave_scores, ref.wave_scores_ref, (tq, tr), kw, 3,
+                     f"the long re-rank's pairs, {gm} gaps")
+        if not torch.equal(full[keep], got):
+            raise AssertionError(f"{name}: the full block and its trimmed "
+                                 f"pairs score differently")
+        ms = _graph_ms(torch, lambda: wave_scores(qs, rs, **kw), 3)
+        keys[name]["wide_block_ms"] = ms
+        keys[name]["wide_block_shape"] = [list(qs.shape), list(rs.shape)]
+        # card == CPU where the CPU twin is quick: the 34,350 query
+        # against the short refs among its candidates
+        rl = (tr != PAD).sum(1)
+        ql_ = (tq != PAD).sum(1)
+        pick = torch.nonzero((ql_ == LONG_CHAINS[2]) & (rl < 2000))[:, 0]
+        if len(pick) == 0:
+            raise AssertionError("the 34,350 query has no short candidate")
+        cq, cr, _ = _trim_pairs(torch, tq[pick], tr[pick])
+        cpu = ref.wave_scores_ref(cq.cpu(), cr.cpu(), **kw)
+        if not torch.equal(got[pick].cpu(), cpu):
+            raise AssertionError(f"{name}: card != CPU on the 34,350 query")
+        log(f"[wide] re-rank of {len(queries)} queries of "
+            f"{[len(x) for x in queries]} residues against 1,000 refs and "
+            f"chains of {list(LONG_CHAINS)}, {gm} gaps: launches "
+            f"{json.dumps(l_rr)}; each near copy re-ranks its source first;"
+            f" the whole block {tuple(qs.shape)} x {tuple(rs.shape)} on the "
+            f"card {ms:.4f} ms; card == CPU on the 34,350 query x "
+            f"{len(pick)} short refs")
+        keys["launches"][f"long_rerank_{gm}"] = l_rr
+    del sidx, eng
+
+    # --- chains past 8,192 residues: all-vs-all, row wave and wavefront
+    fam = make_family_corpus(FamilyCorpusConfig(
+        n_families=50, family_size=4, n_singletons=200, len_mean=150,
+        len_std=40, sub_rate=0.1, seed=2))
+    seqs = [x[:n] for x, n in zip(fam["ids"], fam["lens"])]
+    copies = [mutate(rng, c, sub_rate=0.001) for c in chains]
+    a_ids, a_lens = _rows(seqs + chains + copies)
+    n0 = len(seqs)
+    long_pairs = {(n0 + i, n0 + len(chains) + i) for i in range(len(chains))}
+    acfg = _allpairs_config()
+    runs = {}
+    for dp in ("rowwave", "wavefront"):
+        c = replace(acfg, wave=replace(acfg.wave, dp_kernel=dp))
+        trace.TRACER = trace.Tracer(capacity=1 << 16)
+        trace.enable()
+        r, l_ap = _window(torch, ops, lambda: all_pairs_search(
+            a_ids, a_lens, c, device=dev))
+        trace.disable()
+        waves = [sp["args"] for sp in trace.TRACER.spans()
+                 if sp["name"] == "wave" and sp["args"]["kind"] == "sw"]
+        trace.TRACER = trace.Tracer()
+        widest = max((w["Lr"] for w in waves), default=0)
+        runs[dp] = r
+        kname = "sw_rowwave" if dp == "rowwave" else "wave_scores_linear"
+        if l_ap[kname] <= 0 or widest <= 8192:
+            raise AssertionError(f"all_pairs_search ({dp}): {kname} "
+                                 f"launches {l_ap[kname]}, widest SW wave "
+                                 f"{widest}")
+        found = {tuple(p) for p in r.pairs[r.scored.kept].tolist()}
+        if not long_pairs <= found:
+            raise AssertionError(f"{dp}: a long chain and its copy were not "
+                                 f"scored: {sorted(long_pairs - found)}")
+        log(f"[wide] all_pairs_search over {len(a_lens)} sequences (chains "
+            f"of {list(LONG_CHAINS)} and a near copy of each), dp_kernel="
+            f"{dp}: {r.join.n_candidates} candidates, "
+            f"{int(r.scored.kept.sum())} survivors, {len(waves)} SW waves, "
+            f"the widest {widest} columns, {r.families.n_families} "
+            f"families; launches {json.dumps(l_ap)}")
+        keys["launches"][f"long_allpairs_{dp}"] = l_ap
+    a, b = runs["rowwave"], runs["wavefront"]
+    if not (np.array_equal(a.pairs, b.pairs)
+            and np.array_equal(a.scored.scores, b.scored.scores)
+            and np.array_equal(a.labels, b.labels)):
+        raise AssertionError("long all-pairs: row wave != wavefront")
+    # K7 at the long pairs themselves: each chain against its copy
+    lq, lr = _rows(chains), _rows(copies)
+    qs = torch.from_numpy(lq[0]).to(dev)
+    rs = torch.from_numpy(lr[0]).to(dev)
+    got = replay("sw_rowwave", sw_rowwave, ref.sw_rowwave_ref, (qs, rs),
+                 {"gap": -4}, 3, "each long chain against its near copy")
+    if not torch.equal(got, ops.wavefront_scores(qs, rs)):
+        raise AssertionError("K7 != K3 on the long chains")
+    # card == CPU on the corpus without the 34,350 chain (its CPU twins
+    # take tens of seconds a pair)
+    keep = np.ones(len(a_lens), bool)
+    keep[[n0 + 2, n0 + 5]] = False
+    cids, clens = a_ids[keep][:, :max(LONG_CHAINS[:2])], a_lens[keep]
+    x = all_pairs_search(cids, clens, acfg, device=dev)
+    y = all_pairs_search(cids, clens, acfg, device="cpu")
+    for what, u, v in (("pairs", x.pairs, y.pairs),
+                       ("scores", x.scored.scores, y.scored.scores),
+                       ("labels", x.labels, y.labels)):
+        if not np.array_equal(u, v):
+            raise AssertionError(f"long all-pairs: card != CPU in {what}")
+    log(f"[wide] long all-pairs: row wave == wavefront (pairs, scores, "
+        f"labels); K7 == K3 on each chain against its copy; card == CPU on "
+        f"the corpus without the 34,350 chain ({x.join.n_candidates} "
+        f"candidates); phase {time.perf_counter() - t_start:.1f} s")
+    return keys
 
 
 def phase_small(torch, dev, log):
@@ -1284,8 +1610,8 @@ def main() -> int:
         torch, ops, lambda: phase_serve(torch, ops, dev, log))
     log(f"[main] kernel launches on the serving path: "
         f"{json.dumps(serve_l)}")
-    search_l = phase_search(torch, ops, dev, index, serve_data, serve_probe,
-                            log)
+    search_l, emission = phase_search(torch, ops, dev, index, serve_data,
+                                      serve_probe, log)
     log(f"[main] kernel launches on the dense join's search_pairs (K6's "
         f"path): {json.dumps(search_l)}")
     del index, serve_data, serve_probe
@@ -1319,8 +1645,13 @@ def main() -> int:
               "wave_scores_linear": pair_l["wave_scores_linear"],
               "sw_rowwave": rowwave_l["sw_rowwave"]}
     rows = phase_kernels(torch, recorded, full, real, stages, launches,
-                         wave_l, log)
+                         wave_l, emission, log)
     phase_small(torch, dev, log)
+    wide = phase_wide(torch, ops, dev, log)
+    log(f"[main] kernel launches on the [wide] paths: "
+        f"{json.dumps(wide.pop('launches'))}")
+    for row in rows:
+        row.update(wide.get(row["name"], {}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -60,7 +60,15 @@ def _residues(x: torch.Tensor) -> torch.Tensor:
 
 def wave_scores(qs: torch.Tensor, rs: torch.Tensor, *, gap_open: int,
                 gap_extend: int, affine: bool) -> torch.Tensor:
-    """(B, Lq) x (B, Lr) int8 residues -> (B,) int32 best local scores."""
+    """(B, Lq) x (B, Lr) int8 residues -> (B,) int32 best local scores.
+
+    The sweep keeps one lane per query row, so it runs with the shorter
+    side as the query: the best score is the same with the sides swapped
+    (BLOSUM62, the sentinel table and the gaps are symmetric, and E and F
+    trade places), and a 34,350-residue chain against a short one costs
+    the short side's lanes a diagonal."""
+    if qs.shape[1] > rs.shape[1]:
+        qs, rs = rs, qs
     B, Lq = qs.shape
     Lr = rs.shape[1]
     dt = lane_dtype(Lq, Lr)
@@ -75,12 +83,19 @@ def wave_scores(qs: torch.Tensor, rs: torch.Tensor, *, gap_open: int,
     def shift(x):
         return torch.cat([zcol, x[:, :-1]], dim=1)
 
+    def scores(c0, c1):
+        """(B, c1 - c0, Lq) scores of diagonals c0..c1-1, SENT8 outside."""
+        j = torch.arange(c0, c1, device=dev)[:, None] - i
+        s = table[qrow[:, None, :] + r[:, j.clamp(0, Lr - 1)]]
+        return torch.where((j >= 0) & (j < Lr), s, SENT8).to(dt)
+
+    ndiag = Lq + Lr - 1
+    step = max(1, (1 << 22) // max(B * Lq, 1))   # diagonals a score block
     h1 = h2s = e1 = f1 = best = z
-    for c in range(Lq + Lr - 1):
-        j = c - i
-        inside = (j >= 0) & (j < Lr)
-        s = table[qrow + r[:, j.clamp(0, Lr - 1)]]
-        s = torch.where(inside, s, SENT8).to(dt)
+    for c in range(ndiag):
+        if c % step == 0:
+            block = scores(c, min(ndiag, c + step))
+        s = block[:, c % step]
         h1s = shift(h1)
         if affine:
             e = torch.maximum(e1 + gap_extend, h1 + gap_open)

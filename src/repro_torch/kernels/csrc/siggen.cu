@@ -50,6 +50,13 @@
 // does every block when D > 128. No value wraps: V is exact wherever scores and V fit
 // int32, as in the twin.
 //
+// Wide signatures. A launch computes one slice of at most 256 columns of
+// V (8 n8 pairs of accumulators a warp is what the registers hold): for
+// f > 256 the wrapper launches once a 256-column slice of H, each launch
+// writing its columns of V with the row stride ld of the whole V. Product
+// 1 and the threshold are then repeated once a slice: ceil(f / 256) times
+// the first product's work, for widths the paper does not use.
+//
 // Ragged edges: rows past S stage as zero; the wrapper's copy of cb and H
 // in the tensor-core layout (a few hundred KB) ends in zero words up to the
 // word tile. A zero row or word scores 0 < T and adds nothing (T >= 1).
@@ -128,7 +135,8 @@ __device__ void exact_rows(const int32_t* __restrict__ rows,
                            const int8_t* __restrict__ cb,
                            const int8_t* __restrict__ H,
                            int32_t* __restrict__ out, long row0, int nrows,
-                           int S, int D, int W, int f, int T, int32_t* vs) {
+                           int S, int D, int W, int f, int ld, int T,
+                           int32_t* vs) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   int32_t* v = vs + warp * f;
@@ -142,12 +150,12 @@ __device__ void exact_rows(const int32_t* __restrict__ rows,
       int s = 0;
       for (int d = 0; d < D; ++d) s += x[d] * c[d];
       if (s >= T) {
-        const int8_t* h = H + static_cast<long>(w) * f;
+        const int8_t* h = H + static_cast<long>(w) * ld;
         for (int n = 0; n < f; ++n) atomicAdd(&v[n], s * h[n]);
       }
     }
     __syncwarp();
-    for (int n = lane; n < f; n += 32) out[row * f + n] = v[n];
+    for (int n = lane; n < f; n += 32) out[row * ld + n] = v[n];
     __syncwarp();
   }
 }
@@ -158,7 +166,7 @@ siggen_kernel(const int32_t* __restrict__ rows, const int8_t* __restrict__ cb,
               const int8_t* __restrict__ H, const int8_t* __restrict__ cbp,
               const int8_t* __restrict__ htp,
               const int32_t* __restrict__ cb_l1, int32_t* __restrict__ out,
-              int S, int D, int W, int Wp, int T) {
+              int S, int D, int W, int Wp, int ld, int T) {
   constexpr int F = 32 * NW;
   constexpr int DP = 32 * KS;
   constexpr int MT = F <= 64 ? 2 : 1;   // m16 row tiles a warp
@@ -216,7 +224,7 @@ siggen_kernel(const int32_t* __restrict__ rows, const int8_t* __restrict__ cb,
       static_cast<unsigned long long>(amax_s) * static_cast<unsigned>(*cb_l1);
   if (amax_s > 127 || bound + T > 128) {   // outside the byte form
     cp_wait_all();
-    exact_rows(rows, cb, H, out, row0, BS, S, D, W, F, T,
+    exact_rows(rows, cb, H, out, row0, BS, S, D, W, F, ld, T,
                reinterpret_cast<int32_t*>(smem));
     return;
   }
@@ -309,10 +317,10 @@ siggen_kernel(const int32_t* __restrict__ rows, const int8_t* __restrict__ cb,
     for (int n = 0; n < NF; ++n) {
       const int col = 8 * n + 2 * t4;
       if (r < S)
-        *reinterpret_cast<int2*>(out + r * F + col) =
+        *reinterpret_cast<int2*>(out + r * ld + col) =
             make_int2(acc[mt][n][0], acc[mt][n][1]);
       if (r + 8 < S)
-        *reinterpret_cast<int2*>(out + (r + 8) * F + col) =
+        *reinterpret_cast<int2*>(out + (r + 8) * ld + col) =
             make_int2(acc[mt][n][2], acc[mt][n][3]);
     }
   }
@@ -323,17 +331,17 @@ __global__ void __launch_bounds__(NT)
 siggen_exact_kernel(const int32_t* __restrict__ rows,
                     const int8_t* __restrict__ cb,
                     const int8_t* __restrict__ H, int32_t* __restrict__ out,
-                    int S, int D, int W, int f, int T) {
+                    int S, int D, int W, int f, int ld, int T) {
   extern __shared__ __align__(16) int32_t vs[];
   const int bs = rows_per_block(f);
   exact_rows(rows, cb, H, out, static_cast<long>(blockIdx.x) * bs, bs, S, D,
-             W, f, T, vs);
+             W, f, ld, T, vs);
 }
 
 template <int NW, int KS>
 int launch(const void* rows, const void* cb, const void* H, const void* cbp,
            const void* htp, const void* cb_l1, void* out, int S, int D,
-           int W, int Wp, int T, cudaStream_t stream) {
+           int W, int Wp, int ld, int T, cudaStream_t stream) {
   constexpr int F = 32 * NW;
   const long smem = smem_bytes(32 * KS, F);
   auto kernel = siggen_kernel<NW, KS>;
@@ -347,27 +355,30 @@ int launch(const void* rows, const void* cb, const void* H, const void* cbp,
       static_cast<const int32_t*>(rows), static_cast<const int8_t*>(cb),
       static_cast<const int8_t*>(H), static_cast<const int8_t*>(cbp),
       static_cast<const int8_t*>(htp), static_cast<const int32_t*>(cb_l1),
-      static_cast<int32_t*>(out), S, D, W, Wp, T);
+      static_cast<int32_t*>(out), S, D, W, Wp, ld, T);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int NW>
 int launch_ks(int ks, const void* rows, const void* cb, const void* H,
               const void* cbp, const void* htp, const void* cb_l1, void* out,
-              int S, int D, int W, int Wp, int T, cudaStream_t stream) {
+              int S, int D, int W, int Wp, int ld, int T,
+              cudaStream_t stream) {
   switch (ks) {
-    case 2: return launch<NW, 2>(rows, cb, H, cbp, htp, cb_l1, out, S, D, W, Wp, T, stream);
-    case 3: return launch<NW, 3>(rows, cb, H, cbp, htp, cb_l1, out, S, D, W, Wp, T, stream);
-    case 4: return launch<NW, 4>(rows, cb, H, cbp, htp, cb_l1, out, S, D, W, Wp, T, stream);
+    case 2: return launch<NW, 2>(rows, cb, H, cbp, htp, cb_l1, out, S, D, W, Wp, ld, T, stream);
+    case 3: return launch<NW, 3>(rows, cb, H, cbp, htp, cb_l1, out, S, D, W, Wp, ld, T, stream);
+    case 4: return launch<NW, 4>(rows, cb, H, cbp, htp, cb_l1, out, S, D, W, Wp, ld, T, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// V (S, f) = sum_w [rows . cb_w >= T] (rows . cb_w) H_w. f a multiple of
-// 32 up to 256, T >= 1. cbp (Wp, dp) and htp (f, Wp) int8 and cb_l1 (1,)
-// int32 are the wrapper's tensor-core layout of cb and H
+// V (S, f) = sum_w [rows . cb_w >= T] (rows . cb_w) H_w for one slice of
+// f <= 256 columns (a multiple of 32) of a wider V: H (W, .) and out
+// (S, .) have rows of ld >= f columns and point at the slice's first
+// column. T >= 1. cbp (Wp, dp) and htp (f, Wp) int8 (the slice's rows) and
+// cb_l1 (1,) int32 are the wrapper's tensor-core layout of cb and H
 // (repro_torch/kernels/siggen.py::siggen_operands); dp and smem are its
 // siggen_geometry, checked here. dp = 0: D > 128, the exact path only
 // (cbp, htp and cb_l1 unused). Returns the CUDA error code of the launch.
@@ -375,10 +386,10 @@ extern "C" int siggen_accumulate(const void* rows, const void* cb,
                                  const void* H, const void* cbp,
                                  const void* htp, const void* cb_l1,
                                  void* out, int S, int D, int W, int Wp,
-                                 int f, int T, int dp, long smem,
+                                 int f, int ld, int T, int dp, long smem,
                                  void* stream) {
   if (S == 0) return 0;
-  if (f % 32 || f < 32 || f > 256 || T < 1 || D < 0 || W < 0)
+  if (f % 32 || f < 32 || f > 256 || ld < f || T < 1 || D < 0 || W < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D > 32 * KS_MAX) {
@@ -388,21 +399,21 @@ extern "C" int siggen_accumulate(const void* rows, const void* cb,
     siggen_exact_kernel<<<(S + bs - 1) / bs, NT, want, st>>>(
         static_cast<const int32_t*>(rows), static_cast<const int8_t*>(cb),
         static_cast<const int8_t*>(H), static_cast<int32_t*>(out), S, D, W,
-        f, T);
+        f, ld, T);
     return static_cast<int>(cudaGetLastError());
   }
   const int ks = D <= 64 ? 2 : (D + 31) / 32;
   if (dp != 32 * ks || smem != smem_bytes(dp, f) || Wp % BW || Wp < W)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (f / 32) {
-    case 1: return launch_ks<1>(ks, rows, cb, H, cbp, htp, cb_l1, out, S, D, W, Wp, T, st);
-    case 2: return launch_ks<2>(ks, rows, cb, H, cbp, htp, cb_l1, out, S, D, W, Wp, T, st);
-    case 3: return launch_ks<3>(ks, rows, cb, H, cbp, htp, cb_l1, out, S, D, W, Wp, T, st);
-    case 4: return launch_ks<4>(ks, rows, cb, H, cbp, htp, cb_l1, out, S, D, W, Wp, T, st);
-    case 5: return launch_ks<5>(ks, rows, cb, H, cbp, htp, cb_l1, out, S, D, W, Wp, T, st);
-    case 6: return launch_ks<6>(ks, rows, cb, H, cbp, htp, cb_l1, out, S, D, W, Wp, T, st);
-    case 7: return launch_ks<7>(ks, rows, cb, H, cbp, htp, cb_l1, out, S, D, W, Wp, T, st);
-    case 8: return launch_ks<8>(ks, rows, cb, H, cbp, htp, cb_l1, out, S, D, W, Wp, T, st);
+    case 1: return launch_ks<1>(ks, rows, cb, H, cbp, htp, cb_l1, out, S, D, W, Wp, ld, T, st);
+    case 2: return launch_ks<2>(ks, rows, cb, H, cbp, htp, cb_l1, out, S, D, W, Wp, ld, T, st);
+    case 3: return launch_ks<3>(ks, rows, cb, H, cbp, htp, cb_l1, out, S, D, W, Wp, ld, T, st);
+    case 4: return launch_ks<4>(ks, rows, cb, H, cbp, htp, cb_l1, out, S, D, W, Wp, ld, T, st);
+    case 5: return launch_ks<5>(ks, rows, cb, H, cbp, htp, cb_l1, out, S, D, W, Wp, ld, T, st);
+    case 6: return launch_ks<6>(ks, rows, cb, H, cbp, htp, cb_l1, out, S, D, W, Wp, ld, T, st);
+    case 7: return launch_ks<7>(ks, rows, cb, H, cbp, htp, cb_l1, out, S, D, W, Wp, ld, T, st);
+    case 8: return launch_ks<8>(ks, rows, cb, H, cbp, htp, cb_l1, out, S, D, W, Wp, ld, T, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -38,8 +38,10 @@
 // same warp: lane 31 saves the strip's last-row H (and F) of every column, and
 // lane 0 of the next strip reads them back in place of the shuffle (in shared
 // memory, or in per-pair global scratch when the wrapper passes one). RPT is the smallest multiple of 4
-// that makes one strip of Lq rows (at most 32, so up to 8 strips at
-// Lq = 8192), and a strip sweeps lr + 31 steps at most.
+// that makes one strip of Lq rows, at most 32; past Lq = 1024 the strips
+// repeat as often as the query needs (34 at titin's 34,350 residues), and
+// a strip sweeps lr + 31 steps at most. Scores stay far inside int32: a
+// cell is at most 11 (BLOSUM62's largest score) times min(Lq, Lr).
 //
 // Substitution scores come from a per-strip query profile in shared memory:
 // for each residue c, the RPT int8 scores of a lane's rows sit together, so
@@ -316,9 +318,9 @@ int launch_wave(const int8_t* qs, const int8_t* rs, const int32_t* table,
 // K3: (B, Lq) x (B, Lr) int8 residues -> (B,) int32 best local scores.
 // table: (21*21,) int32 BLOSUM62 with the PAD row/column at the sentinel.
 // Rows per lane (RPT) is the smallest multiple of 4 whose 32-lane strip
-// holds Lq rows, at most 32; Lq up to 8192 (8 strips). scratch: null to
-// keep a multi-strip query's strip buffers in shared memory, else B x Lr
-// (x2 affine) int32 in global memory for them;
+// holds Lq rows, at most 32; any Lq (ceil(Lq / 1024) strips past that).
+// scratch: null to keep a multi-strip query's strip buffers in shared
+// memory, else B x Lr (x2 affine) int32 in global memory for them;
 // repro_torch/kernels/sw.py::wave_geometry decides which.
 // Returns the CUDA error code of the launch.
 extern "C" int wave_scores(const void* qs, const void* rs, const void* table,
@@ -326,8 +328,7 @@ extern "C" int wave_scores(const void* qs, const void* rs, const void* table,
                            int gap_extend, int affine, void* scratch,
                            void* stream) {
   if (B == 0) return 0;
-  if (Lq < 1 || Lr < 1 || Lq > 8192)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (Lq < 1 || Lr < 1) return static_cast<int>(cudaErrorInvalidValue);
   auto q = static_cast<const int8_t*>(qs);
   auto r = static_cast<const int8_t*>(rs);
   auto t = static_cast<const int32_t*>(table);
@@ -592,9 +593,19 @@ extern "C" int ungapped_scores(const void* qs, const void* rs,
 // row in segments of 1024 columns, carrying the prefix max from one to the
 // next; H[i-1, :] then sits in a per-warp shared buffer, and the diagonal
 // of a lane's first column comes from the lane before (one
-// __shfl_up_sync). The launch geometry (CPT, segments, pairs a block,
-// shared bytes) is repro_torch/kernels/sw.py::rowwave_geometry; the
-// wrapper passes it in and this file checks it against its own.
+// __shfl_up_sync). A warp's buffer (the profile, 21 bytes a column, the H
+// row and the PAD masks) fits the 227 KB of one block up to 8 segments
+// (Lr = 8,192). Past that (a titin chain of 34,350 residues is 34
+// segments) the profile moves to per-pair global scratch that the wrapper
+// allocates (21,504 bytes a segment), where it is read from L2, each
+// segment's scores loaded one segment ahead so that L2's latency overlaps
+// the segment before; the H row and the masks (4,224 bytes a segment)
+// stay in shared memory, as many pairs a block as fit. Past 54 segments
+// (Lr = 55,296) they move to the scratch too. Shorter references keep the
+// shared-memory kernels as they were. The launch geometry (CPT, segments,
+// pairs a block, shared bytes, scratch bytes a pair) is
+// repro_torch/kernels/sw.py::rowwave_geometry; the wrapper passes it in
+// and this file checks it against its own.
 // ---------------------------------------------------------------------------
 
 namespace {
@@ -609,13 +620,27 @@ constexpr long RW_SMEM_MAX = 232448 - 4 * NA * NA;
 // segments, pairs a block and dynamic shared bytes for a width of Lr.
 struct RowwaveGeometry {
   int cpt, segs, ppb;
-  long smem;
+  long smem, scratch;   // dynamic shared bytes a block; global bytes a pair
+  int gmem;             // 0: all in shared memory; 1: the profile in the
+                        // scratch; 2: the H row and masks there too
 };
 
+// a warp's profile, and its H row and PAD masks (past one segment)
+__host__ __device__ inline long rw_prof_bytes(int cpt, int segs) {
+  return NA * 32L * cpt * segs;
+}
+__host__ __device__ inline long rw_row_bytes(int cpt, int segs) {
+  return segs > 1 ? (4 * 32L * cpt + 4 * 32) * segs : 0;
+}
 __host__ __device__ inline long rw_warp_bytes(int cpt, int segs) {
-  // the profile, and past one segment the H row and the PAD masks
-  const long cols = 32L * cpt;
-  return NA * cols * segs + (segs > 1 ? (4 * cols + 4 * 32) * segs : 0);
+  return rw_prof_bytes(cpt, segs) + rw_row_bytes(cpt, segs);
+}
+
+// the largest of 4, 2, 1 pairs a block whose bytes fit beside the table
+inline int rw_pairs(long warp) {
+  for (int p = RW_WARPS; p > 1; p >>= 1)
+    if (p * warp <= RW_SMEM_MAX) return p;
+  return 1;
 }
 
 inline RowwaveGeometry rw_geometry(int Lr) {
@@ -624,10 +649,16 @@ inline RowwaveGeometry rw_geometry(int Lr) {
     if (32 * c >= Lr) { cpt = c; break; }
   const int segs = (Lr + 32 * cpt - 1) / (32 * cpt);
   const long warp = rw_warp_bytes(cpt, segs);
-  int ppb = 1;
-  for (int p = RW_WARPS; p > 1; p >>= 1)
-    if (p * warp <= RW_SMEM_MAX) { ppb = p; break; }
-  return {cpt, segs, ppb, ppb * warp};
+  if (warp <= RW_SMEM_MAX) {
+    const int ppb = rw_pairs(warp);
+    return {cpt, segs, ppb, ppb * warp, 0, 0};
+  }
+  const long row = rw_row_bytes(cpt, segs);
+  if (row <= RW_SMEM_MAX) {
+    const int ppb = rw_pairs(row);
+    return {cpt, segs, ppb, ppb * row, rw_prof_bytes(cpt, segs), 1};
+  }
+  return {cpt, segs, RW_WARPS, 0, warp, 2};
 }
 
 // Builds the warp's reference profile for segments [0, nseg) of its pair:
@@ -710,11 +741,14 @@ __device__ __forceinline__ int rw_exclusive_max(int total, int lane) {
   return y;
 }
 
-template <int CPT, bool MULTI>
+// GMEM (MULTI only): 1, the profile lives in per-pair global scratch; 2,
+// the H row and masks after it too.
+template <int CPT, bool MULTI, int GMEM>
 __global__ void __launch_bounds__(RW_WARPS * 32, 1)
 rowwave_kernel(const int8_t* __restrict__ qs, const int8_t* __restrict__ rs,
                const int32_t* __restrict__ table, int32_t* __restrict__ out,
-               int B, int Lq, int Lr, int gap, int segs) {
+               int8_t* __restrict__ scratch, int B, int Lq, int Lr, int gap,
+               int segs) {
   extern __shared__ __align__(16) int8_t smem[];
   __shared__ int32_t tab[NA * NA];
   for (int i = threadIdx.x; i < NA * NA; i += blockDim.x) tab[i] = table[i];
@@ -733,8 +767,15 @@ rowwave_kernel(const int8_t* __restrict__ qs, const int8_t* __restrict__ rs,
   }
   constexpr int COLS = 32 * CPT;   // columns of a segment
   const int nseg = MULTI ? (lr + COLS - 1) / COLS : 1;
-  int8_t* prof = smem + warp * rw_warp_bytes(CPT, segs);
-  int32_t* hbuf = reinterpret_cast<int32_t*>(prof + NA * COLS * segs);
+  // the pair's slice of the scratch: its profile (GMEM 1) or its whole
+  // buffer (GMEM 2)
+  const long pair_bytes = GMEM == 1 ? rw_prof_bytes(CPT, segs)
+                                    : rw_warp_bytes(CPT, segs);
+  int8_t* prof = GMEM ? scratch + b * pair_bytes
+                      : smem + warp * rw_warp_bytes(CPT, segs);
+  int32_t* hbuf = reinterpret_cast<int32_t*>(
+      GMEM == 1 ? smem + warp * rw_row_bytes(CPT, segs)
+                : prof + NA * COLS * segs);
   uint32_t* pm = reinterpret_cast<uint32_t*>(hbuf + COLS * segs);
   const uint32_t mask0 =
       rw_profile<CPT, MULTI>(r, lr, nseg, tab, prof, hbuf, pm, lane);
@@ -772,18 +813,25 @@ rowwave_kernel(const int8_t* __restrict__ qs, const int8_t* __restrict__ rs,
       qn = q2;
     }
   } else {
+    if constexpr (GMEM > 0) load_scores<CPT>(row_scores(0, qres(0)), w);
     for (int i = 0; i < lq; ++i) {
       const int qi = qres(i);
       int carry = 0;      // the prefix over the earlier segments
       int seg_left = 0;   // H[i-1, first column of the segment - 1]
       for (int sg = 0; sg < nseg; ++sg) {
+        int wn[CPT / 4];
+        if constexpr (GMEM > 0) {   // from L2: the next segment's scores
+          const bool more = sg + 1 < nseg;
+          load_scores<CPT>(row_scores(more ? sg + 1 : 0,
+                                      more ? qi : qres(i + 1)), wn);
+        }
         int32_t* hs = hbuf + sg * COLS + lane * CPT;
 #pragma unroll
         for (int k = 0; k < CPT; k += 4) {
           const int4 x = *reinterpret_cast<const int4*>(hs + k);
           h[k] = x.x; h[k + 1] = x.y; h[k + 2] = x.z; h[k + 3] = x.w;
         }
-        load_scores<CPT>(row_scores(sg, qi), w);
+        if constexpr (GMEM == 0) load_scores<CPT>(row_scores(sg, qi), w);
         int left = __shfl_up_sync(FULL, h[CPT - 1], 1);
         if (lane == 0) left = seg_left;
         seg_left = __shfl_sync(FULL, h[CPT - 1], 31);
@@ -800,6 +848,10 @@ rowwave_kernel(const int8_t* __restrict__ qs, const int8_t* __restrict__ rs,
         for (int k = 0; k < CPT; k += 4)
           *reinterpret_cast<int4*>(hs + k) =
               make_int4(h[k], h[k + 1], h[k + 2], h[k + 3]);
+        if constexpr (GMEM > 0) {
+#pragma unroll
+          for (int k = 0; k < CPT / 4; ++k) w[k] = wn[k];
+        }
       }
     }
   }
@@ -807,17 +859,17 @@ rowwave_kernel(const int8_t* __restrict__ qs, const int8_t* __restrict__ rs,
   if (lane == 0) out[b] = best;
 }
 
-template <int CPT, bool MULTI>
+template <int CPT, bool MULTI, int GMEM = 0>
 int launch_rowwave(const void* qs, const void* rs, const void* table,
-                   void* out, int B, int Lq, int Lr, int gap,
+                   void* out, void* scratch, int B, int Lq, int Lr, int gap,
                    const RowwaveGeometry& g, cudaStream_t stream) {
-  auto kernel = rowwave_kernel<CPT, MULTI>;
+  auto kernel = rowwave_kernel<CPT, MULTI, GMEM>;
   int e = set_smem(reinterpret_cast<const void*>(kernel), g.smem);
   if (e) return e;
   kernel<<<(B + g.ppb - 1) / g.ppb, g.ppb * 32, g.smem, stream>>>(
       static_cast<const int8_t*>(qs), static_cast<const int8_t*>(rs),
-      static_cast<const int32_t*>(table), static_cast<int32_t*>(out), B, Lq,
-      Lr, gap, g.segs);
+      static_cast<const int32_t*>(table), static_cast<int32_t*>(out),
+      static_cast<int8_t*>(scratch), B, Lq, Lr, gap, g.segs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -825,24 +877,36 @@ int launch_rowwave(const void* qs, const void* rs, const void* table,
 
 // K7: (B, Lq) x (B, Lr) int8 residues -> (B,) int32 row-wave linear-gap SW
 // best scores (gap < 0). table: (21*21,) int32 BLOSUM62 (PAD is masked in
-// the kernel). cpt, segs, ppb and smem are rowwave_geometry(Lq, Lr) of
-// repro_torch/kernels/sw.py, checked here against this file's own; Lr up
-// to 8192. Returns the CUDA error code of the launch.
+// the kernel). cpt, segs, ppb, smem and scratch_bytes are
+// rowwave_geometry(Lq, Lr) of repro_torch/kernels/sw.py, checked here
+// against this file's own; any Lr. scratch: B x scratch_bytes of global
+// memory when scratch_bytes > 0 (past 8 segments), else null. Returns the
+// CUDA error code of the launch.
 extern "C" int sw_rowwave(const void* qs, const void* rs, const void* table,
                           void* out, int B, int Lq, int Lr, int gap, int cpt,
-                          int segs, int ppb, long smem, void* stream) {
+                          int segs, int ppb, long smem, long scratch_bytes,
+                          void* scratch, void* stream) {
   if (B == 0) return 0;
-  if (Lq < 1 || Lr < 1 || Lr > 8192 || gap >= 0)
+  if (Lq < 1 || Lr < 1 || gap >= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const RowwaveGeometry g = rw_geometry(Lr);
-  if (g.cpt != cpt || g.segs != segs || g.ppb != ppb || g.smem != smem)
+  if (g.cpt != cpt || g.segs != segs || g.ppb != ppb || g.smem != smem ||
+      g.scratch != scratch_bytes || (g.scratch > 0) != (scratch != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (g.gmem == 1)
+    return launch_rowwave<32, true, 1>(qs, rs, table, out, scratch, B, Lq,
+                                       Lr, gap, g, st);
+  if (g.gmem == 2)
+    return launch_rowwave<32, true, 2>(qs, rs, table, out, scratch, B, Lq,
+                                       Lr, gap, g, st);
   if (g.segs > 1)
-    return launch_rowwave<32, true>(qs, rs, table, out, B, Lq, Lr, gap, g, st);
+    return launch_rowwave<32, true>(qs, rs, table, out, nullptr, B, Lq, Lr,
+                                    gap, g, st);
 #define K7_LAUNCH(C)                                                        \
   if (g.cpt == (C))                                                         \
-    return launch_rowwave<C, false>(qs, rs, table, out, B, Lq, Lr, gap, g, st);
+    return launch_rowwave<C, false>(qs, rs, table, out, nullptr, B, Lq, Lr, \
+                                    gap, g, st);
   K7_LAUNCH(4) K7_LAUNCH(8) K7_LAUNCH(12) K7_LAUNCH(16)
   K7_LAUNCH(20) K7_LAUNCH(24) K7_LAUNCH(28) K7_LAUNCH(32)
 #undef K7_LAUNCH

@@ -30,11 +30,12 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _launch(name: str, launcher, *args, **kw) -> torch.Tensor:
-    """Launch one kernel; count it and, while recording, keep its first
-    inputs."""
+def _launch(name: str, launcher, *args, launches: int = 1,
+            **kw) -> torch.Tensor:
+    """Run one kernel launcher that makes ``launches`` launches; count them
+    and, while recording, keep its first inputs."""
     out = launcher(*args, **kw)
-    LAUNCHES[name] += 1
+    LAUNCHES[name] += launches
     if RECORDED is not None and name not in RECORDED:
         RECORDED[name] = (tuple(a.clone() for a in args), dict(kw))
     return out
@@ -59,9 +60,9 @@ def signatures_fused(rows, cb, H, *, T: int) -> torch.Tensor:
     if T < 1:
         raise ValueError("padding exactness requires T >= 1 (paper uses T >= 11)")
     if _on_cuda(rows, cb, H):
-        from .siggen import siggen_accumulate
+        from .siggen import siggen_accumulate, siggen_slices
         return _launch("siggen_accumulate", siggen_accumulate, rows, cb, H,
-                       T=T)
+                       T=T, launches=len(siggen_slices(H.shape[1])))
     return ref.siggen_accumulate_ref(rows, cb, H, T)
 
 

@@ -110,7 +110,11 @@ def ungapped_scores_ref(qs: torch.Tensor, rs: torch.Tensor,
 def sw_rowwave_ref(qs: torch.Tensor, rs: torch.Tensor, *,
                    gap: int = GAP) -> torch.Tensor:
     """Twin of K7: row-wave linear-gap SW best scores, (B, Lq) x (B, Lr)
-    int8 -> (B,) int32."""
+    int8 -> (B,) int32. The rows run along the shorter side (the score is
+    the same with the sides swapped: BLOSUM62 and the gap are symmetric),
+    so a long chain against a short one takes few rows."""
+    if qs.shape[1] > rs.shape[1]:
+        qs, rs = rs, qs
     best = torch.zeros((qs.shape[0],), dtype=torch.int32, device=qs.device)
     for row in rowwave_rows(qs, rs, gap=gap):
         best = torch.maximum(best, row.amax(dim=1))

@@ -25,6 +25,7 @@ SIGGEN_WARPS = 4     # warps per block
 SIGGEN_BW = 128      # codebook words per tile
 SIGGEN_PADB = 16     # row padding (bytes) of the shared tiles
 SIGGEN_DP_MAX = 128  # D up to this runs on the tensor cores
+SIGGEN_F_MAX = 256   # columns of V a launch; wider f runs in slices
 
 
 @dataclass(frozen=True)
@@ -36,10 +37,16 @@ class SiggenGeometry:
     smem_bytes: int      # dynamic shared memory per block
 
 
+def siggen_slices(f: int) -> list[tuple[int, int]]:
+    """The (first column, width) of each launch of K1 for f columns: slices
+    of ``SIGGEN_F_MAX``, the last one narrower."""
+    return [(c, min(SIGGEN_F_MAX, f - c)) for c in range(0, f, SIGGEN_F_MAX)]
+
+
 def siggen_geometry(D: int, W: int, f: int) -> SiggenGeometry:
-    """K1's launch geometry for rows (S, D), a (W, D) codebook and f
-    hyperplanes: the rows tile, two cb tiles and two transposed H tiles
-    in shared memory, each row padded by 16 bytes."""
+    """K1's launch geometry for rows (S, D), a (W, D) codebook and a slice
+    of f <= 256 hyperplanes: the rows tile, two cb tiles and two transposed
+    H tiles in shared memory, each row padded by 16 bytes."""
     bs = SIGGEN_WARPS * 16 * (2 if f <= 64 else 1)
     if D > SIGGEN_DP_MAX:
         return SiggenGeometry(dp=0, rows_per_block=bs, words=W,
@@ -86,7 +93,8 @@ def siggen_operands(cb: torch.Tensor, H: torch.Tensor, geo: SiggenGeometry):
 def siggen_accumulate(rows: torch.Tensor, cb: torch.Tensor, H: torch.Tensor,
                       T: int) -> torch.Tensor:
     """Launch K1: rows (S, D) int32, cb (W, D) int8, H (W, f) int8, all
-    contiguous on one CUDA device, T >= 1 -> V (S, f) int32."""
+    contiguous on one CUDA device, f a multiple of 32, T >= 1 -> V (S, f)
+    int32; one launch per slice of :func:`siggen_slices`."""
     if rows.dtype != torch.int32 or cb.dtype != torch.int8 \
             or H.dtype != torch.int8:
         raise TypeError("siggen_accumulate takes rows int32, cb int8, H int8")
@@ -97,8 +105,9 @@ def siggen_accumulate(rows: torch.Tensor, cb: torch.Tensor, H: torch.Tensor,
     if cb.shape != (W, D):
         raise ValueError(f"cb {tuple(cb.shape)} does not match rows D={D} "
                          f"and H W={W}")
-    if f % 32 or not 32 <= f <= 256:
-        raise ValueError(f"siggen_accumulate takes f in 32..256 step 32, got {f}")
+    if f % 32 or f < 32:
+        raise ValueError(f"siggen_accumulate takes f a positive multiple of "
+                         f"32, got {f}")
     if T < 1:
         raise ValueError("siggen_accumulate takes T >= 1 (a zero pad row or "
                          "word must score below T)")
@@ -107,15 +116,20 @@ def siggen_accumulate(rows: torch.Tensor, cb: torch.Tensor, H: torch.Tensor,
     if not (rows.device == cb.device == H.device):
         raise ValueError("siggen_accumulate operands must share one device")
     out = torch.empty((S, f), dtype=torch.int32, device=rows.device)
-    geo = siggen_geometry(D, W, f)
+    fn = build.function("siggen", "siggen_accumulate",
+                        [_P] * 7 + [_I] * 8 + [ctypes.c_long, _P])
+    # the layout of cb and H for every slice at once: the slices' H rows
+    # are row blocks of htp (f, words)
+    geo = siggen_geometry(D, W, min(f, SIGGEN_F_MAX))
     cbp = htp = cb_l1 = None
     if geo.dp:
         cbp, htp, cb_l1 = siggen_operands(cb, H, geo)
-    fn = build.function("siggen", "siggen_accumulate",
-                        [_P] * 7 + [_I] * 7 + [ctypes.c_long, _P])
-    build.launch(fn, rows.device, rows.data_ptr(), cb.data_ptr(),
-                 H.data_ptr(), *(None if t is None else t.data_ptr()
-                                 for t in (cbp, htp, cb_l1)),
-                 out.data_ptr(), S, D, W, geo.words, f, int(T), geo.dp,
-                 geo.smem_bytes)
+    for c, fs in siggen_slices(f):
+        geo = siggen_geometry(D, W, fs)
+        hp = None if htp is None else htp.data_ptr() + c * geo.words
+        build.launch(fn, rows.device, rows.data_ptr(), cb.data_ptr(),
+                     H.data_ptr() + c, None if cbp is None else cbp.data_ptr(),
+                     hp, None if cb_l1 is None else cb_l1.data_ptr(),
+                     out.data_ptr() + 4 * c, S, D, W, geo.words, fs, f,
+                     int(T), geo.dp, geo.smem_bytes)
     return out

@@ -23,8 +23,6 @@ import torch
 from . import build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-MAX_LQ = 8192       # K3: 8 strips of 32 lanes x 32 rows
-MAX_LR = 8192       # K7: 8 segments of 32 lanes x 32 columns
 SMEM_BLOCK_MAX = 232_448   # shared memory a block can use on the H100
 
 # K3's launch geometry: csrc/sw.cu picks the same rows per lane; where the
@@ -47,10 +45,10 @@ class WaveGeometry:
 def wave_geometry(Lq: int, Lr: int, affine: bool) -> WaveGeometry:
     """K3's launch geometry for a (B, Lq) x (B, Lr) block: rows per lane
     the smallest of ``WAVE_RPT`` whose strip holds Lq rows (else the
-    largest, in several strips); per warp a 21 x 32 x rpt int8 query
-    profile and, with more than one strip, the last row's H (and F,
-    affine) of each column, in shared memory while the block's buffers
-    fit ``WAVE_SMEM_BUF_MAX`` bytes, else in global scratch."""
+    largest, in as many strips as Lq needs); per warp a 21 x 32 x rpt
+    int8 query profile and, with more than one strip, the last row's H
+    (and F, affine) of each column, in shared memory while the block's
+    buffers fit ``WAVE_SMEM_BUF_MAX`` bytes, else in global scratch."""
     rpt = next((r for r in WAVE_RPT if 32 * r >= Lq), WAVE_RPT[-1])
     strips = -(-Lq // (32 * rpt))
     nbuf = 2 if affine else 1
@@ -74,6 +72,9 @@ class RowwaveGeometry:
     segments: int          # segments of the widest reference (Lr)
     pairs_per_block: int
     smem_bytes: int        # dynamic shared memory per block
+    scratch_per_pair: int  # bytes of a pair's profile (past 54 segments,
+                           # with its H row and masks) in global memory;
+                           # 0: all in shared memory
 
 
 def rowwave_geometry(Lq: int, Lr: int) -> RowwaveGeometry:
@@ -83,17 +84,31 @@ def rowwave_geometry(Lq: int, Lr: int) -> RowwaveGeometry:
     reference profile per segment and, with more than one segment, the H
     row (int32) and a PAD mask word per lane of each segment; as many
     pairs per block (4, 2 or 1) as shared memory holds beside the BLOSUM
-    table. Lq does not enter: the rows are the warp's loop."""
+    table. Where one pair's buffer does not fit a block (past 8 segments)
+    the profile moves to per-pair global scratch and the H rows and masks
+    stay, as many pairs a block as fit; past 54 segments they move to the
+    scratch too, 4 pairs a block. Lq does not enter: the rows are the
+    warp's loop."""
     cpt = next((c for c in ROWWAVE_CPT if 32 * c >= Lr), ROWWAVE_CPT[-1])
     cols = 32 * cpt
     segments = -(-Lr // cols)
-    per_warp = 21 * cols * segments
-    if segments > 1:
-        per_warp += (4 * cols + 4 * 32) * segments
+    prof = 21 * cols * segments
+    row = (4 * cols + 4 * 32) * segments if segments > 1 else 0
     avail = SMEM_BLOCK_MAX - 4 * 21 * 21
-    ppb = next(p for p in (ROWWAVE_WARPS, 2, 1) if p * per_warp <= avail)
-    return RowwaveGeometry(cpt=cpt, segments=segments, pairs_per_block=ppb,
-                           smem_bytes=ppb * per_warp)
+
+    def geometry(smem_per_warp, scratch):
+        ppb = next((p for p in (ROWWAVE_WARPS, 2) if p * smem_per_warp
+                    <= avail), 1)
+        return RowwaveGeometry(cpt=cpt, segments=segments,
+                               pairs_per_block=ppb,
+                               smem_bytes=ppb * smem_per_warp,
+                               scratch_per_pair=scratch)
+
+    if prof + row <= avail:
+        return geometry(prof + row, 0)
+    if row <= avail:
+        return geometry(row, prof)
+    return geometry(0, prof + row)
 
 
 @functools.lru_cache(maxsize=8)
@@ -130,8 +145,6 @@ def wave_scores(qs: torch.Tensor, rs: torch.Tensor, *, gap_open: int,
     """Launch K3: qs (B, Lq), rs (B, Lr) int8 residues, contiguous on one
     CUDA device -> (B,) int32 best local scores."""
     B, Lq, Lr = _check_pair_block("wave_scores", qs, rs)
-    if Lq > MAX_LQ:
-        raise ValueError(f"wave_scores takes Lq <= {MAX_LQ}, got {Lq}")
     out = torch.empty((B,), dtype=torch.int32, device=qs.device)
     geo = wave_geometry(Lq, Lr, affine)
     scratch = (torch.empty((B, geo.scratch_per_pair), dtype=torch.int32,
@@ -166,17 +179,19 @@ def sw_rowwave(qs: torch.Tensor, rs: torch.Tensor, *,
     """Launch K7: qs (B, Lq), rs (B, Lr) int8 residues, contiguous on one
     CUDA device -> (B,) int32 linear-gap SW best scores (``gap`` < 0)."""
     B, Lq, Lr = _check_pair_block("sw_rowwave", qs, rs)
-    if Lr > MAX_LR:
-        raise ValueError(f"sw_rowwave takes Lr <= {MAX_LR}, got {Lr}")
     if gap >= 0:
         raise ValueError("sw_rowwave takes a negative gap penalty")
     out = torch.empty((B,), dtype=torch.int32, device=qs.device)
     geo = rowwave_geometry(Lq, Lr)
+    scratch = (torch.empty((B, geo.scratch_per_pair), dtype=torch.int8,
+                           device=qs.device)
+               if geo.scratch_per_pair and B else None)
     fn = build.function("sw", "sw_rowwave",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         ctypes.c_long, _P])
+                         ctypes.c_long, ctypes.c_long, _P, _P])
     build.launch(fn, qs.device, qs.data_ptr(), rs.data_ptr(),
                  _table(qs.device, False).data_ptr(), out.data_ptr(), B, Lq,
                  Lr, int(gap), geo.cpt, geo.segments, geo.pairs_per_block,
-                 geo.smem_bytes)
+                 geo.smem_bytes, geo.scratch_per_pair,
+                 None if scratch is None else scratch.data_ptr())
     return out

@@ -20,7 +20,6 @@ from repro_torch.core.neighbors import codebook_onehot, shingle_rows
 from repro_torch.core.shingle import extract_shingles
 from repro_torch.core.simhash import hyperplanes
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.sw import MAX_LQ
 from repro_torch.util import u32_to_i32
 
 
@@ -238,7 +237,7 @@ def _wave_block(B, Lq, Lr, seed):
 _WAVE_SHAPES = [(9, 40, 250), (9, 300, 250), (9, 1100, 250), (1, 129, 1),
                 (6, 257, 1), (5, 513, 700), (7, 769, 300), (6, 1023, 300),
                 (5, 1024, 60), (7, 1025, 300), (3, 2049, 2100),
-                (2, MAX_LQ, 100), (2, 1500, 4500)]
+                (2, 8192, 100), (2, 1500, 4500)]
 
 
 @pytest.mark.cuda
@@ -262,11 +261,12 @@ def test_wave_kernel_matches_twin_on_card(cuda_device, gap_mode, go, ge, B,
 
 @pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
-    q = torch.zeros((4, 9), dtype=torch.int32, device=cuda_device)
-    with pytest.raises(ValueError):          # more than 8 words
+    q = torch.zeros((4, 0), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):          # no signature word
         ops.all_pairs_hamming(q, q)
     with pytest.raises(ValueError):
         ops.hamming_counts(q, q, 1)
+    q = torch.zeros((4, 9), dtype=torch.int32, device=cuda_device)
     with pytest.raises(TypeError):           # int64 signature words
         ops.hamming_counts(q[:, :2].long(), q[:, :2].long(), 1)
     with pytest.raises(TypeError):           # int64 signature words
@@ -281,6 +281,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     cb = torch.zeros((8, 63), dtype=torch.int8, device=cuda_device)
     with pytest.raises(ValueError):          # T below 1
         siggen_accumulate(rows, cb, cb[:, :32].contiguous(), 0)
+    with pytest.raises(ValueError):          # f not a multiple of 32
+        siggen_accumulate(rows, cb, cb[:, :40].contiguous(), 13)
 
 
 @pytest.mark.cuda
@@ -416,3 +418,155 @@ def test_allpairs_card_equals_cpu(cuda_device):
     np.testing.assert_array_equal(a.scored.scores, b.scored.scores)
     np.testing.assert_array_equal(a.scored.kept, b.scored.kept)
     np.testing.assert_array_equal(a.labels, b.labels)
+
+
+# ----------------------------------------------------------------------
+# Widths past 256 bits and lengths past 8,192 residues, and the
+# redesigned K2 and K5.
+
+def _twin_dists(q, r, rows=8):
+    """K2's twin a few query rows at a time (it forms (rows, R, nw) int64
+    temporaries)."""
+    return torch.cat([ref.hamming_dist_ref(q[i:i + rows], r)
+                      for i in range(0, q.shape[0], rows)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 3, 1000, 454_401])
+@pytest.mark.parametrize("Q", [1, 64, 70])
+@pytest.mark.parametrize("nw", [1, 2, 8, 9, 16, 32])
+def test_hamming_dist_kernel_any_width_on_card(cuda_device, nw, Q, R):
+    """K2 against its twin, both store variants up to 8 words (one word a
+    row start: R = 454,401 shifts every row's 16-byte groups; R = 1 and 3
+    are ragged groups only; Q = 70 is past one 64-row query tile)."""
+    from repro_torch.kernels.hamming import hamming_dist
+    rng = np.random.default_rng(nw * 7 + Q + R)
+    q = u32_to_i32(rng.integers(0, 2**32, (Q, nw), dtype=np.uint64)
+                   .astype(np.uint32)).to(cuda_device)
+    r = u32_to_i32(rng.integers(0, 2**32, (R, nw), dtype=np.uint64)
+                   .astype(np.uint32)).to(cuda_device)
+    want = _twin_dists(q, r)
+    for bulk in ((False, True) if nw <= 8 else (False,)):
+        got = hamming_dist(q, r, bulk=bulk)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (bulk, int((got != want).sum()))
+    ops.reset_launches()
+    assert torch.equal(ops.all_pairs_hamming(q, r), want)
+    assert ops.LAUNCHES["hamming_dist"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,R,d", [(64, 454_401, 3), (300, 2049, 2),
+                                   (5, 1000, 200)])
+def test_count_kernel_16_words_on_card(cuda_device, Q, R, d):
+    """K6's chunked path (nw = 16) against its twin; d = 200 counts
+    nearly every ref."""
+    q, r = _near(np.random.default_rng(Q + d), Q, R, 16)
+    q, r = q.to(cuda_device), r.to(cuda_device)
+    ops.reset_launches()
+    got = ops.hamming_counts(q, r, d)
+    assert ops.LAUNCHES["hamming_count"] == 1
+    want = (_twin_dists(q, r) <= d).sum(1).to(torch.int32)
+    assert torch.equal(got, want)
+    assert int(want.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [288, 512])
+@pytest.mark.parametrize("T", [1, 13])
+def test_siggen_kernel_wide_on_card(cuda_device, f, T):
+    """K1 past 256 columns: one launch per 256-column slice, each writing
+    its columns of V."""
+    rows, cb, H = _siggen_inputs(1000, 3, f, 31)
+    t = [a.to(cuda_device) for a in (rows, cb, H)]
+    ops.reset_launches()
+    got = ops.signatures_fused(*t, T=T)
+    assert ops.LAUNCHES["siggen_accumulate"] == 2
+    assert torch.equal(got, ref.siggen_accumulate_ref(*t, T))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lq,Lr", [(8193, 60), (8193, 2500), (34_350, 40),
+                                   (34_350, 20_000), (2100, 20_000)])
+@pytest.mark.parametrize("gap_mode", ["linear", "affine"])
+def test_wave_kernel_long_queries_on_card(cuda_device, gap_mode, Lq, Lr):
+    """K3 past 8,192 query rows (9 and 34 strips), its strip buffers in
+    global scratch past Lr = 4,096 (2,048 affine), up to Lr = 20,000."""
+    from repro_torch.kernels.sw import wave_geometry
+    qs, rs = _wave_block(3, Lq, Lr, Lq + Lr)
+    q, r = torch.from_numpy(qs).to(cuda_device), torch.from_numpy(rs).to(
+        cuda_device)
+    geo = wave_geometry(Lq, Lr, gap_mode == "affine")
+    assert geo.strips == -(-Lq // 1024)
+    ops.reset_launches()
+    got = ops.wavefront_scores(q, r, gap_mode=gap_mode)
+    assert ops.LAUNCHES[f"wave_scores_{gap_mode}"] == 1
+    want = ref.wave_scores_ref(q, r, gap_open=-11 if gap_mode == "affine"
+                               else -4, gap_extend=-1 if gap_mode == "affine"
+                               else -4, affine=gap_mode == "affine")
+    assert torch.equal(got, want)
+    assert int(want[0]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lq,Lr", [(40, 8193), (300, 8193), (40, 34_350),
+                                   (3, 34_350), (200, 9000), (3, 60_000)])
+def test_rowwave_kernel_long_references_on_card(cuda_device, Lq, Lr):
+    """K7 past 8 segments: the warp's profile in per-pair global scratch
+    (loaded a segment ahead), its H row and masks in shared memory, and
+    past 54 segments (Lr = 60,000) in the scratch too; == its twin ==
+    K3."""
+    from repro_torch.kernels.sw import rowwave_geometry
+    qs, rs = _wave_block(5, Lq, Lr, Lq * 3 + Lr)
+    q, r = torch.from_numpy(qs).to(cuda_device), torch.from_numpy(rs).to(
+        cuda_device)
+    geo = rowwave_geometry(Lq, Lr)
+    assert (geo.scratch_per_pair > 0) == (Lr > 8192)
+    ops.reset_launches()
+    got = ops.sw_rowwave_scores(q, r)
+    assert ops.LAUNCHES["sw_rowwave"] == 1
+    assert torch.equal(got, ref.sw_rowwave_ref(q, r))
+    assert torch.equal(got, ops.wavefront_scores(q, r))
+    assert int(got[0]) > 0
+
+
+@pytest.mark.cuda
+def test_upper_pairs_kernel_big_bucket_on_card(cuda_device):
+    """K5 with one bucket of 3,000 entries beside small ones, and a band
+    with no pair, caps below and above the total; == the torch index math
+    and the twin."""
+    from repro_torch.kernels.spgemm import upper_pairs_by_bucket
+    rng = np.random.default_rng(9)
+    offs = np.array([[0, 40, 3040, 3041, 3100, 3100],
+                     [0, 1, 2, 3, 4, 4]], np.int32)
+    ids = np.stack([rng.permutation(3100), np.arange(3100)]).astype(np.int32)
+    o, i = torch.from_numpy(offs), torch.from_numpy(ids)
+    for cap in (1000, 4_500_000, 1 << 23):
+        got = ops.emit_upper_pairs(o.to(cuda_device), i.to(cuda_device),
+                                   cap=cap).cpu()
+        assert torch.equal(got, upper_pairs_by_bucket(o, i, cap=cap))
+        assert torch.equal(got, ops.emit_upper_pairs(o, i, cap=cap))
+
+
+@pytest.mark.cuda
+def test_upper_pairs_kernel_myva_shape_on_card(cuda_device):
+    """K5 at the myva join's shape: offsets (2, 37,166), ids (2, 192,987),
+    cap 4,194,304; buckets of random sizes with a long tail."""
+    rng = np.random.default_rng(12)
+    U, E = 37_165, 192_987
+    offs = np.zeros((2, U + 1), np.int32)
+    ids = np.zeros((2, E), np.int32)
+    for b in range(2):
+        sizes = rng.geometric(0.2, U)
+        sizes[rng.integers(0, U, 20)] += rng.integers(100, 600, 20)
+        o = np.minimum(np.concatenate([[0], np.cumsum(sizes)]), E)
+        offs[b] = o
+        ids[b] = rng.permutation(E)
+    o, i = torch.from_numpy(offs).to(cuda_device), torch.from_numpy(ids).to(
+        cuda_device)
+    ops.reset_launches()
+    got = ops.emit_upper_pairs(o, i, cap=1 << 22)
+    assert ops.LAUNCHES["upper_pairs"] == 1
+    want = ref.upper_pairs_ref(o, i, cap=1 << 22)
+    assert torch.equal(got, want)
+    assert int((want[:, :, 0] >= 0).sum()) > 1 << 20

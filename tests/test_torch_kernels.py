@@ -457,15 +457,16 @@ def test_ungapped_no_drop_is_the_relu_walk(case):
 
 
 @pytest.mark.parametrize("Lq", [1, 31, 32, 33, 127, 129, 255, 257, 511, 513,
-                                767, 769, 1023, 1025, 1100, 8192])
+                                767, 769, 1023, 1025, 1100, 8192, 8193,
+                                34_350])
 def test_wave_geometry(Lq):
     """K3's launch geometry: the fewest rows per lane whose strip holds Lq
-    (else 32 rows and more strips), at most 8 strips, shared memory within
-    the card's 227 KB a block, global scratch only for multi-strip queries
-    whose strip buffers overflow shared memory."""
-    from repro_torch.kernels.sw import (MAX_LQ, WAVE_RPT, WAVE_SMEM_BUF_MAX,
+    (else 32 rows and as many strips as Lq needs: 34 at titin's 34,350),
+    shared memory within the card's 227 KB a block, global scratch only
+    for multi-strip queries whose strip buffers overflow shared memory."""
+    from repro_torch.kernels.sw import (WAVE_RPT, WAVE_SMEM_BUF_MAX,
                                         wave_geometry)
-    for Lr in (1, 256, 730, 8192):
+    for Lr in (1, 256, 730, 8192, 20_000):
         for affine in (False, True):
             g = wave_geometry(Lq, Lr, affine)
             assert g.rpt in WAVE_RPT and g.pairs_per_block == 4
@@ -473,7 +474,6 @@ def test_wave_geometry(Lq):
             assert g.rpt == (fits[0] if fits else WAVE_RPT[-1])
             assert g.strips == -(-Lq // (32 * g.rpt))
             assert (g.strips > 1) == (Lq > 32 * WAVE_RPT[-1])
-            assert g.strips <= MAX_LQ // (32 * WAVE_RPT[-1])
             buf = 4 * 4 * Lr * (2 if affine else 1)
             spill = g.strips > 1 and buf > WAVE_SMEM_BUF_MAX
             assert g.scratch_per_pair == (
@@ -485,26 +485,37 @@ def test_wave_geometry(Lq):
 
 @pytest.mark.parametrize("Lr", [1, 31, 32, 33, 128, 129, 383, 384, 385,
                                 1023, 1024, 1025, 2048, 2049, 4096, 4097,
-                                8192])
+                                8192, 8193, 9000, 34_350, 55_296, 55_297,
+                                60_000])
 def test_rowwave_geometry(Lr):
     """K7's launch geometry: the fewest columns per lane (a multiple of 4)
-    whose 32 lanes hold Lr (else 32 and more segments, at most 8), per warp
-    a 21 x 32 x cpt int8 profile a segment plus, past one segment, the H
-    row and a mask word a lane; 4, 2 or 1 pairs a block, as many as fit the
-    card's 227 KB beside the BLOSUM table; Lq does not enter."""
-    from repro_torch.kernels.sw import (MAX_LR, ROWWAVE_CPT,
-                                        rowwave_geometry)
+    whose 32 lanes hold Lr (else 32 and more segments), per warp a
+    21 x 32 x cpt int8 profile a segment plus, past one segment, the H row
+    and a mask word a lane; 4, 2 or 1 pairs a block, as many as fit the
+    card's 227 KB beside the BLOSUM table. Past 8 segments, where one
+    pair's buffer does not fit, the profile sits in per-pair global
+    scratch and the H rows and masks in shared memory; past 54 segments
+    they join the profile in the scratch, 4 pairs a block. Lq does not
+    enter."""
+    from repro_torch.kernels.sw import ROWWAVE_CPT, rowwave_geometry
     g = rowwave_geometry(1, Lr)
     assert all(rowwave_geometry(Lq, Lr) == g for Lq in (384, 8192))
     fits = [c for c in ROWWAVE_CPT if 32 * c >= Lr]
     assert g.cpt == (fits[0] if fits else ROWWAVE_CPT[-1])
     assert g.segments == -(-Lr // (32 * g.cpt))
     assert (g.segments > 1) == (Lr > 32 * ROWWAVE_CPT[-1])
-    assert g.segments <= MAX_LR // (32 * ROWWAVE_CPT[-1])
-    per_warp = 21 * 32 * g.cpt * g.segments + (
-        (4 * 32 * g.cpt + 4 * 32) * g.segments if g.segments > 1 else 0)
-    assert g.smem_bytes == g.pairs_per_block * per_warp
+    prof = 21 * 32 * g.cpt * g.segments
+    row = (4 * 32 * g.cpt + 4 * 32) * g.segments if g.segments > 1 else 0
     room = 232_448 - 4 * 21 * 21
+    assert (g.scratch_per_pair > 0) == (g.segments > 8) == (prof + row > room)
+    assert g.scratch_per_pair % 16 == 0
+    if g.segments > 54:                  # everything in the scratch
+        assert g.scratch_per_pair == prof + row
+        assert g.smem_bytes == 0 and g.pairs_per_block == 4
+        return
+    in_smem = row if g.scratch_per_pair else prof + row
+    assert g.scratch_per_pair in (0, prof)
+    assert g.smem_bytes == g.pairs_per_block * in_smem
     assert g.smem_bytes <= room
     assert g.pairs_per_block == 4 or 2 * g.smem_bytes > room
 
