@@ -62,7 +62,7 @@ Phases, any failure exits non-zero:
               the CPU (the twins): identical outputs.
 9. wide     — widths and lengths past the kernels' old limits: f = 512
               (16 words) at NC_000913 scale through K1 (``siggen_method=
-              "matmul"``, one launch per 256-column slice), the dense
+              "matmul"``, a grid per 256-column slice), the dense
               top-k (K2) and the dense join at d=1 (K6, then K2), card ==
               CPU; chains of 8,193, 12,000 and 34,350 residues planted in
               a 1,000-ref index and served with the SW re-rank (K3 past
@@ -79,9 +79,8 @@ read just after it: serving (phase 2), each join's ``search_pairs``
 (phase 3; the dense join's is K6's path), the K1 build (phase 4), and in
 phase 5 the timed ``all_pairs_search`` (the all-pairs main path), the row
 wave over the survivors (K7's path), the base run and the ingest, each on
-its own, and in phase 9 each wide or long path. K2's row also times both
-store variants at the serving batch and at the dense join's first
-emission tile. The kernel wrappers record their first inputs throughout phases
+its own, and in phase 9 each wide or long path. K2's row also times the
+dense join's first emission tile. The kernel wrappers record their first inputs throughout phases
 2-5. The build logs ptxas's registers and spills of every sw.cu
 and siggen.cu kernel. The output ends with the card's ``nvidia-smi`` name
 and power limit, one JSON line of kernels, and the ``ok`` line. Needs one CUDA
@@ -1097,45 +1096,26 @@ def _check_and_time(torch, name, args, kw, run, twin, reps, twin_reps):
     return (got, err, ms, plain_ms) + _bounds(name, args, kw)
 
 
-def _k2_variants(torch, serve_args, emission, log):
-    """K2's two store variants (16-byte streaming stores; bulk copies of
-    staged rows) at the serving batch and at the dense join's first
-    emission tile: each checked exactly against the twin and timed. The
-    JSON keys of K2's row."""
+def _k2_emission(torch, emission, log):
+    """K2 at the dense join's first emission tile: checked exactly against
+    the twin and timed. The JSON keys it adds to K2's row."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.hamming import BULK_MIN_ROWS, hamming_dist
-    out = {}
-    for where, (q, r) in (("", serve_args), ("emission_", emission[0])):
-        want = ref.hamming_dist_ref(q, r)
-        times = {}
-        for bulk in (False, True):
-            got = hamming_dist(q, r, bulk=bulk)
-            if not torch.equal(got, want):
-                raise AssertionError(f"K2 (bulk={bulk}) at {tuple(q.shape)} x"
-                                     f" {tuple(r.shape)} disagrees with its "
-                                     f"twin")
-            del got
-            times[bulk] = _graph_ms(
-                torch, lambda: hamming_dist(q, r, bulk=bulk), 20)
-        del want
-        bound, _ = _bounds("hamming_dist", (q, r), {})
-        bulk = q.shape[0] >= BULK_MIN_ROWS   # the wrapper's choice
-        what = ("the dense join's first emission tile" if where
-                else "the serving batch")
-        log(f"[kernels] hamming_dist variants at {tuple(q.shape)} x "
-            f"{tuple(r.shape)} ({what}): "
-            f"exact vs twin; streaming stores {times[False]:.4f} ms, bulk "
-            f"copies {times[True]:.4f} ms (device, 20 launches in one CUDA "
-            f"graph), bound {bound * 1e3:.3f} us; the wrapper launches "
-            f"{'bulk copies' if bulk else 'streaming stores'}")
-        out[f"{where}ms_stores"] = times[False]
-        out[f"{where}ms_bulk"] = times[True]
-        if where:
-            out["emission_ms"] = times[bulk]
-            out["emission_bound_ms"] = bound
-            out["emission_shape"] = [list(q.shape), list(r.shape)]
-        torch.cuda.empty_cache()
-    return out
+    from repro_torch.kernels.hamming import hamming_dist
+    q, r = emission[0]
+    got = hamming_dist(q, r)
+    if not torch.equal(got, ref.hamming_dist_ref(q, r)):
+        raise AssertionError(f"K2 at the emission tile {tuple(q.shape)} x "
+                             f"{tuple(r.shape)} disagrees with its twin")
+    del got
+    ms = _graph_ms(torch, lambda: hamming_dist(q, r), 20)
+    bound, _ = _bounds("hamming_dist", (q, r), {})
+    log(f"[kernels] hamming_dist at {tuple(q.shape)} x {tuple(r.shape)} "
+        f"(the dense join's first emission tile): exact vs twin; kernel "
+        f"{ms:.4f} ms (device, 20 launches in one CUDA graph), bound "
+        f"{bound * 1e3:.3f} us")
+    torch.cuda.empty_cache()
+    return {"emission_ms": ms, "emission_bound_ms": bound,
+            "emission_shape": [list(q.shape), list(r.shape)]}
 
 
 def phase_kernels(torch, recorded, full, real, stages, launches, wave_l,
@@ -1177,7 +1157,7 @@ def phase_kernels(torch, recorded, full, real, stages, launches, wave_l,
         if name == "siggen_accumulate":
             _siggen_int_mm(torch, args, kw, got, log)
         del got
-        extra = (_k2_variants(torch, args, emission, log)
+        extra = (_k2_emission(torch, emission, log)
                  if name == "hamming_dist" else {})
         shapes = " x ".join(str(tuple(a.shape)) for a in args)
         log(f"[kernels] {name} at {shapes}{' ' + json.dumps(kw) if kw else ''}"

@@ -28,12 +28,11 @@
 // (up to 64 rows) sit in shared memory and are read as broadcasts. The
 // grid is persistent: at most as many blocks as the card holds at once,
 // each striding over (query tile, column tile) items, so no tail wave
-// runs half empty. Variant BULK stages 8 rows of a tile in shared memory
-// and writes each row's aligned middle with one Hopper bulk copy
-// (cp.async.bulk.global.shared::cta) instead of the threads' vector
-// stores. The copies lose at a 64-row serving batch and win at the dense
-// join's 295-row emission tiles, so the wrapper picks by query rows
-// (kernels/hamming.py BULK_MIN_ROWS); chip_smoke.py times both.
+// runs half empty. (Staging 8 rows in shared memory and writing each
+// row's middle with one bulk copy, cp.async.bulk.global.shared::cta, was
+// measured too: 20-25% slower at the 64-row serving batch, 0.5-3.4%
+// faster at the dense join's 295-row emission tiles, so it went; PERF.md
+// section 6.)
 //
 // Any nw: up to 8 words the words live in registers as a template
 // constant. Past 8 words (f > 256) a chunked path adds the distances over
@@ -50,13 +49,8 @@ constexpr int DT = 256;         // K2: threads a block
 constexpr int GR = 4;           // K2: columns a thread a row: one int4
 constexpr int RT = DT * GR;     // K2: columns a tile
 constexpr int QT = 64;          // K2: query rows a tile
-constexpr int SR = 8;           // K2 BULK: rows staged a round
 constexpr int WCH = 8;          // words a chunk past 8 words (K2 and K6)
 constexpr int QB = 4;           // K2 chunked path: query rows a pass
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // (i * R) mod 4: the shift of row i's 16-byte groups
 __device__ __forceinline__ int row_shift(long long i, int R) {
@@ -99,16 +93,14 @@ __device__ __forceinline__ void store4(int32_t* __restrict__ out,
     if (col + m >= 0 && col + m < R) __stcs(out + base + col + m, v[m]);
 }
 
-template <int NW, bool BULK>
+template <int NW>
 __global__ void __launch_bounds__(DT)
 dist_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ r,
             int32_t* __restrict__ out, int Q, int R, int nrt,
             long long items) {
   __shared__ uint32_t qs[QT * NW];
-  extern __shared__ __align__(16) int32_t stage[];   // BULK: [2][SR][RT]
   const int k = threadIdx.x;
   int staged = -1;
-  int round = 0;   // BULK: rounds issued, alternating the two buffers
   for (long long it = blockIdx.x; it < items; it += gridDim.x) {
     const int qt = static_cast<int>(it / nrt);
     const int c0 = static_cast<int>(it % nrt) * RT;
@@ -131,64 +123,20 @@ dist_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ r,
       for (int w = 0; w < NW; ++w)
         rw[j][w] = in ? r[static_cast<long long>(col) * NW + w] : 0u;
     }
-    auto row_dists = [&](int i, int s) {
+    for (int i = 0; i < nq; ++i) {
+      const long long row = q0 + i;
+      const int s = row_shift(row, R);
       const uint32_t* qw = qs + i * NW;
+      int4 d;
       switch (s) {
-        case 0: return dists4<NW, 0>(qw, rw);
-        case 1: return dists4<NW, 1>(qw, rw);
-        case 2: return dists4<NW, 2>(qw, rw);
-        default: return dists4<NW, 3>(qw, rw);
+        case 0: d = dists4<NW, 0>(qw, rw); break;
+        case 1: d = dists4<NW, 1>(qw, rw); break;
+        case 2: d = dists4<NW, 2>(qw, rw); break;
+        default: d = dists4<NW, 3>(qw, rw); break;
       }
-    };
-    if (!BULK) {
-      for (int i = 0; i < nq; ++i) {
-        const long long row = q0 + i;
-        const int s = row_shift(row, R);
-        store4(out, row * R, cg - s, R, row_dists(i, s));
-      }
-      continue;
-    }
-    for (int i0 = 0; i0 < nq; i0 += SR, ++round) {
-      int32_t* buf = stage + (round & 1) * SR * RT;
-      // the copies that read this buffer two rounds ago are done
-      if (k < SR)
-        asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
-      __syncthreads();
-      for (int u = 0; u < SR && i0 + u < nq; ++u) {
-        const long long row = q0 + i0 + u;
-        const int s = row_shift(row, R);
-        const int col = cg - s;
-        const int4 d = row_dists(i0 + u, s);
-        if (col >= 0 && col + 3 < R)
-          *reinterpret_cast<int4*>(buf + u * RT + GR * k) = d;
-        else
-          store4(out, row * R, col, R, d);   // a row's ragged ends
-      }
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      __syncthreads();
-      // thread u copies row u's full groups, and commits a group every
-      // round (an empty one past the rows), so its "all but the newest"
-      // wait above covers this buffer's last round
-      if (k < SR) {
-        const long long row = q0 + i0 + k;
-        const int s = row_shift(row, R);
-        const int lo = c0 - s >= 0 ? 0 : 1;            // first full group
-        const int span = R - 4 - (c0 - s);             // last: span / 4
-        const int hi = span < 0 ? -1 : min(DT - 1, span / 4);
-        if (i0 + k < nq && hi >= lo) {
-          int32_t* dst = out + row * R + (c0 - s) + GR * lo;
-          const int32_t* src = buf + k * RT + GR * lo;
-          const unsigned bytes = 16u * (hi - lo + 1);
-          asm volatile(
-              "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
-              :: "l"(dst), "r"(smem_u32(src)), "r"(bytes) : "memory");
-        }
-        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-      }
+      store4(out, row * R, cg - s, R, d);
     }
   }
-  if (BULK && k < SR)   // shared memory must outlive the copies' reads
-    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // nw > 8: distances added over chunks of WCH words, QB query rows a pass.
@@ -263,25 +211,18 @@ int persistent_grid(const void* kernel, size_t smem, long long items,
   return 0;
 }
 
-template <int NW, bool BULK>
+template <int NW>
 int launch(const void* q, const void* r, void* out, int Q, int R,
            cudaStream_t stream) {
-  auto kernel = dist_kernel<NW, BULK>;
-  const size_t smem = BULK ? sizeof(int32_t) * 2 * SR * RT : 0;
-  if (BULK) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  auto kernel = dist_kernel<NW>;
   // column tiles cover [c0 - 3, c0 + RT): R + 3 columns reach every row
   const int nrt = (R + 3 + RT - 1) / RT;
   const long long items = static_cast<long long>((Q + QT - 1) / QT) * nrt;
   int grid = 0;
-  int e = persistent_grid(reinterpret_cast<const void*>(kernel), smem, items,
+  int e = persistent_grid(reinterpret_cast<const void*>(kernel), 0, items,
                           &grid);
   if (e) return e;
-  kernel<<<grid, DT, smem, stream>>>(
+  kernel<<<grid, DT, 0, stream>>>(
       static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(r),
       static_cast<int32_t*>(out), Q, R, nrt, items);
   return static_cast<int>(cudaGetLastError());
@@ -299,22 +240,6 @@ int launch_wide(const void* q, const void* r, void* out, int Q, int R,
       static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(r),
       static_cast<int32_t*>(out), Q, R, nw, nrt, items);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <bool BULK>
-int launch_nw(const void* q, const void* r, void* out, int Q, int R, int nw,
-              cudaStream_t st) {
-  switch (nw) {
-    case 1: return launch<1, BULK>(q, r, out, Q, R, st);
-    case 2: return launch<2, BULK>(q, r, out, Q, R, st);
-    case 3: return launch<3, BULK>(q, r, out, Q, R, st);
-    case 4: return launch<4, BULK>(q, r, out, Q, R, st);
-    case 5: return launch<5, BULK>(q, r, out, Q, R, st);
-    case 6: return launch<6, BULK>(q, r, out, Q, R, st);
-    case 7: return launch<7, BULK>(q, r, out, Q, R, st);
-    case 8: return launch<8, BULK>(q, r, out, Q, R, st);
-    default: return launch_wide(q, r, out, Q, R, nw, st);
-  }
 }
 
 // K6 — per-query count of references within Hamming distance d.
@@ -453,16 +378,24 @@ int launch_count_wide(const void* q, const void* r, void* out, int Q, int R,
 }  // namespace
 
 // (Q, nw) x (R, nw) packed words -> (Q, R) int32 distances, any nw >= 1;
-// out 16-byte aligned. bulk: 1 for the bulk-copy store variant (nw <= 8).
-// Returns the CUDA error code of the launch.
+// out 16-byte aligned. Returns the CUDA error code of the launch.
 extern "C" int hamming_dist(const void* q, const void* r, void* out, int Q,
-                            int R, int nw, int bulk, void* stream) {
+                            int R, int nw, void* stream) {
   if (Q == 0 || R == 0) return 0;
   if (nw < 1 || reinterpret_cast<uintptr_t>(out) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bulk ? launch_nw<true>(q, r, out, Q, R, nw, st)
-              : launch_nw<false>(q, r, out, Q, R, nw, st);
+  switch (nw) {
+    case 1: return launch<1>(q, r, out, Q, R, st);
+    case 2: return launch<2>(q, r, out, Q, R, st);
+    case 3: return launch<3>(q, r, out, Q, R, st);
+    case 4: return launch<4>(q, r, out, Q, R, st);
+    case 5: return launch<5>(q, r, out, Q, R, st);
+    case 6: return launch<6>(q, r, out, Q, R, st);
+    case 7: return launch<7>(q, r, out, Q, R, st);
+    case 8: return launch<8>(q, r, out, Q, R, st);
+    default: return launch_wide(q, r, out, Q, R, nw, st);
+  }
 }
 
 // (Q, nw) x (R, nw) packed words -> (Q,) int32 counts of refs within

@@ -596,16 +596,14 @@ extern "C" int ungapped_scores(const void* qs, const void* rs,
 // __shfl_up_sync). A warp's buffer (the profile, 21 bytes a column, the H
 // row and the PAD masks) fits the 227 KB of one block up to 8 segments
 // (Lr = 8,192). Past that (a titin chain of 34,350 residues is 34
-// segments) the profile moves to per-pair global scratch that the wrapper
-// allocates (21,504 bytes a segment), where it is read from L2, each
-// segment's scores loaded one segment ahead so that L2's latency overlaps
-// the segment before; the H row and the masks (4,224 bytes a segment)
-// stay in shared memory, as many pairs a block as fit. Past 54 segments
-// (Lr = 55,296) they move to the scratch too. Shorter references keep the
-// shared-memory kernels as they were. The launch geometry (CPT, segments,
-// pairs a block, shared bytes, scratch bytes a pair) is
-// repro_torch/kernels/sw.py::rowwave_geometry; the wrapper passes it in
-// and this file checks it against its own.
+// segments) the whole buffer moves to per-pair global scratch that the
+// wrapper allocates (25,728 bytes a segment), where it is read from L2,
+// each segment's scores loaded one segment ahead so that L2's latency
+// overlaps the segment before; 4 pairs a block, no dynamic shared memory.
+// Shorter references keep the shared-memory kernels as they were. The
+// launch geometry (CPT, segments, pairs a block, shared bytes, scratch
+// bytes a pair) is repro_torch/kernels/sw.py::rowwave_geometry; the
+// wrapper passes it in and this file checks it against its own.
 // ---------------------------------------------------------------------------
 
 namespace {
@@ -621,26 +619,13 @@ constexpr long RW_SMEM_MAX = 232448 - 4 * NA * NA;
 struct RowwaveGeometry {
   int cpt, segs, ppb;
   long smem, scratch;   // dynamic shared bytes a block; global bytes a pair
-  int gmem;             // 0: all in shared memory; 1: the profile in the
-                        // scratch; 2: the H row and masks there too
+                        // (0: all in shared memory)
 };
 
-// a warp's profile, and its H row and PAD masks (past one segment)
-__host__ __device__ inline long rw_prof_bytes(int cpt, int segs) {
-  return NA * 32L * cpt * segs;
-}
-__host__ __device__ inline long rw_row_bytes(int cpt, int segs) {
-  return segs > 1 ? (4 * 32L * cpt + 4 * 32) * segs : 0;
-}
 __host__ __device__ inline long rw_warp_bytes(int cpt, int segs) {
-  return rw_prof_bytes(cpt, segs) + rw_row_bytes(cpt, segs);
-}
-
-// the largest of 4, 2, 1 pairs a block whose bytes fit beside the table
-inline int rw_pairs(long warp) {
-  for (int p = RW_WARPS; p > 1; p >>= 1)
-    if (p * warp <= RW_SMEM_MAX) return p;
-  return 1;
+  // the profile, and past one segment the H row and the PAD masks
+  const long cols = 32L * cpt;
+  return NA * cols * segs + (segs > 1 ? (4 * cols + 4 * 32) * segs : 0);
 }
 
 inline RowwaveGeometry rw_geometry(int Lr) {
@@ -649,16 +634,12 @@ inline RowwaveGeometry rw_geometry(int Lr) {
     if (32 * c >= Lr) { cpt = c; break; }
   const int segs = (Lr + 32 * cpt - 1) / (32 * cpt);
   const long warp = rw_warp_bytes(cpt, segs);
-  if (warp <= RW_SMEM_MAX) {
-    const int ppb = rw_pairs(warp);
-    return {cpt, segs, ppb, ppb * warp, 0, 0};
-  }
-  const long row = rw_row_bytes(cpt, segs);
-  if (row <= RW_SMEM_MAX) {
-    const int ppb = rw_pairs(row);
-    return {cpt, segs, ppb, ppb * row, rw_prof_bytes(cpt, segs), 1};
-  }
-  return {cpt, segs, RW_WARPS, 0, warp, 2};
+  // past 8 segments one pair's buffer does not fit: per-pair scratch
+  if (warp > RW_SMEM_MAX) return {cpt, segs, RW_WARPS, 0, warp};
+  int ppb = 1;
+  for (int p = RW_WARPS; p > 1; p >>= 1)
+    if (p * warp <= RW_SMEM_MAX) { ppb = p; break; }
+  return {cpt, segs, ppb, ppb * warp, 0};
 }
 
 // Builds the warp's reference profile for segments [0, nseg) of its pair:
@@ -741,9 +722,8 @@ __device__ __forceinline__ int rw_exclusive_max(int total, int lane) {
   return y;
 }
 
-// GMEM (MULTI only): 1, the profile lives in per-pair global scratch; 2,
-// the H row and masks after it too.
-template <int CPT, bool MULTI, int GMEM>
+// GMEM (MULTI only): the warp's buffer lives in per-pair global scratch.
+template <int CPT, bool MULTI, bool GMEM>
 __global__ void __launch_bounds__(RW_WARPS * 32, 1)
 rowwave_kernel(const int8_t* __restrict__ qs, const int8_t* __restrict__ rs,
                const int32_t* __restrict__ table, int32_t* __restrict__ out,
@@ -767,15 +747,9 @@ rowwave_kernel(const int8_t* __restrict__ qs, const int8_t* __restrict__ rs,
   }
   constexpr int COLS = 32 * CPT;   // columns of a segment
   const int nseg = MULTI ? (lr + COLS - 1) / COLS : 1;
-  // the pair's slice of the scratch: its profile (GMEM 1) or its whole
-  // buffer (GMEM 2)
-  const long pair_bytes = GMEM == 1 ? rw_prof_bytes(CPT, segs)
-                                    : rw_warp_bytes(CPT, segs);
-  int8_t* prof = GMEM ? scratch + b * pair_bytes
-                      : smem + warp * rw_warp_bytes(CPT, segs);
-  int32_t* hbuf = reinterpret_cast<int32_t*>(
-      GMEM == 1 ? smem + warp * rw_row_bytes(CPT, segs)
-                : prof + NA * COLS * segs);
+  const long pair_bytes = rw_warp_bytes(CPT, segs);
+  int8_t* prof = GMEM ? scratch + b * pair_bytes : smem + warp * pair_bytes;
+  int32_t* hbuf = reinterpret_cast<int32_t*>(prof + NA * COLS * segs);
   uint32_t* pm = reinterpret_cast<uint32_t*>(hbuf + COLS * segs);
   const uint32_t mask0 =
       rw_profile<CPT, MULTI>(r, lr, nseg, tab, prof, hbuf, pm, lane);
@@ -813,14 +787,14 @@ rowwave_kernel(const int8_t* __restrict__ qs, const int8_t* __restrict__ rs,
       qn = q2;
     }
   } else {
-    if constexpr (GMEM > 0) load_scores<CPT>(row_scores(0, qres(0)), w);
+    if constexpr (GMEM) load_scores<CPT>(row_scores(0, qres(0)), w);
     for (int i = 0; i < lq; ++i) {
       const int qi = qres(i);
       int carry = 0;      // the prefix over the earlier segments
       int seg_left = 0;   // H[i-1, first column of the segment - 1]
       for (int sg = 0; sg < nseg; ++sg) {
         int wn[CPT / 4];
-        if constexpr (GMEM > 0) {   // from L2: the next segment's scores
+        if constexpr (GMEM) {   // from L2: the next segment's scores
           const bool more = sg + 1 < nseg;
           load_scores<CPT>(row_scores(more ? sg + 1 : 0,
                                       more ? qi : qres(i + 1)), wn);
@@ -831,7 +805,7 @@ rowwave_kernel(const int8_t* __restrict__ qs, const int8_t* __restrict__ rs,
           const int4 x = *reinterpret_cast<const int4*>(hs + k);
           h[k] = x.x; h[k + 1] = x.y; h[k + 2] = x.z; h[k + 3] = x.w;
         }
-        if constexpr (GMEM == 0) load_scores<CPT>(row_scores(sg, qi), w);
+        if constexpr (!GMEM) load_scores<CPT>(row_scores(sg, qi), w);
         int left = __shfl_up_sync(FULL, h[CPT - 1], 1);
         if (lane == 0) left = seg_left;
         seg_left = __shfl_sync(FULL, h[CPT - 1], 31);
@@ -848,7 +822,7 @@ rowwave_kernel(const int8_t* __restrict__ qs, const int8_t* __restrict__ rs,
         for (int k = 0; k < CPT; k += 4)
           *reinterpret_cast<int4*>(hs + k) =
               make_int4(h[k], h[k + 1], h[k + 2], h[k + 3]);
-        if constexpr (GMEM > 0) {
+        if constexpr (GMEM) {
 #pragma unroll
           for (int k = 0; k < CPT / 4; ++k) w[k] = wn[k];
         }
@@ -859,7 +833,7 @@ rowwave_kernel(const int8_t* __restrict__ qs, const int8_t* __restrict__ rs,
   if (lane == 0) out[b] = best;
 }
 
-template <int CPT, bool MULTI, int GMEM = 0>
+template <int CPT, bool MULTI, bool GMEM = false>
 int launch_rowwave(const void* qs, const void* rs, const void* table,
                    void* out, void* scratch, int B, int Lq, int Lr, int gap,
                    const RowwaveGeometry& g, cudaStream_t stream) {
@@ -894,12 +868,9 @@ extern "C" int sw_rowwave(const void* qs, const void* rs, const void* table,
       g.scratch != scratch_bytes || (g.scratch > 0) != (scratch != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (g.gmem == 1)
-    return launch_rowwave<32, true, 1>(qs, rs, table, out, scratch, B, Lq,
-                                       Lr, gap, g, st);
-  if (g.gmem == 2)
-    return launch_rowwave<32, true, 2>(qs, rs, table, out, scratch, B, Lq,
-                                       Lr, gap, g, st);
+  if (g.scratch)
+    return launch_rowwave<32, true, true>(qs, rs, table, out, scratch, B,
+                                          Lq, Lr, gap, g, st);
   if (g.segs > 1)
     return launch_rowwave<32, true>(qs, rs, table, out, nullptr, B, Lq, Lr,
                                     gap, g, st);

@@ -18,12 +18,6 @@ import torch
 from . import build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-#: K2's store variant, by query rows (nw <= 8): below this each thread
-#: writes its 16-byte groups with streaming stores; from it on, 8 rows at a
-#: time are staged in shared memory and each row's middle is written by one
-#: bulk copy. The copies lose at the serving batch (64 rows) and win at the
-#: dense join's emission tiles (295 rows); chip_smoke.py times both.
-BULK_MIN_ROWS = 256
 
 
 def _check(name: str, q: torch.Tensor, r: torch.Tensor) -> int:
@@ -43,19 +37,16 @@ def _check(name: str, q: torch.Tensor, r: torch.Tensor) -> int:
     return nw
 
 
-def hamming_dist(q: torch.Tensor, r: torch.Tensor, *,
-                 bulk: bool | None = None) -> torch.Tensor:
+def hamming_dist(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """Launch K2: q (Q, nw), r (R, nw) int32 bit patterns, contiguous on
-    one CUDA device, any nw >= 1 -> (Q, R) int32 distances. ``bulk``
-    picks the store variant (default: by :data:`BULK_MIN_ROWS`)."""
+    one CUDA device, any nw >= 1 -> (Q, R) int32 distances."""
     nw = _check("hamming_dist", q, r)
     Q, R = q.shape[0], r.shape[0]
     out = torch.empty((Q, R), dtype=torch.int32, device=q.device)
-    bulk = Q >= BULK_MIN_ROWS if bulk is None else bulk
     fn = build.function("hamming", "hamming_dist",
-                        [_P, _P, _P, _I, _I, _I, _I, _P])
+                        [_P, _P, _P, _I, _I, _I, _P])
     build.launch(fn, q.device, q.data_ptr(), r.data_ptr(), out.data_ptr(),
-                 Q, R, nw, int(bool(bulk)))
+                 Q, R, nw)
     return out
 
 

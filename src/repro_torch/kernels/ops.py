@@ -4,7 +4,10 @@ A CUDA tensor goes to the hand-written kernel, or the call raises; a CPU
 tensor goes to the kernel's plain twin (``ref.py``). There is no fallback
 from one to the other. Each wrapper counts its kernel launches in
 :data:`LAUNCHES` — a run can show that its main path went through the
-kernels — and counts nothing when the twin runs. While
+kernels — and counts nothing when the twin runs. The count is one for each
+call of a kernel's launcher, whatever number of grids that call runs: K1
+runs one for each 256-column slice of H, K5 three (two scan passes and the
+emission). While
 :data:`RECORDED` is a dict, each wrapper also keeps there a copy of the
 first inputs it launches its kernel on, so a smoke run can replay the
 main path's own shapes against the twins.
@@ -30,12 +33,11 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _launch(name: str, launcher, *args, launches: int = 1,
-            **kw) -> torch.Tensor:
-    """Run one kernel launcher that makes ``launches`` launches; count them
-    and, while recording, keep its first inputs."""
+def _launch(name: str, launcher, *args, **kw) -> torch.Tensor:
+    """Launch one kernel; count it and, while recording, keep its first
+    inputs."""
     out = launcher(*args, **kw)
-    LAUNCHES[name] += launches
+    LAUNCHES[name] += 1
     if RECORDED is not None and name not in RECORDED:
         RECORDED[name] = (tuple(a.clone() for a in args), dict(kw))
     return out
@@ -60,9 +62,9 @@ def signatures_fused(rows, cb, H, *, T: int) -> torch.Tensor:
     if T < 1:
         raise ValueError("padding exactness requires T >= 1 (paper uses T >= 11)")
     if _on_cuda(rows, cb, H):
-        from .siggen import siggen_accumulate, siggen_slices
+        from .siggen import siggen_accumulate
         return _launch("siggen_accumulate", siggen_accumulate, rows, cb, H,
-                       T=T, launches=len(siggen_slices(H.shape[1])))
+                       T=T)
     return ref.siggen_accumulate_ref(rows, cb, H, T)
 
 

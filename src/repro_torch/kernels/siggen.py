@@ -94,7 +94,7 @@ def siggen_accumulate(rows: torch.Tensor, cb: torch.Tensor, H: torch.Tensor,
                       T: int) -> torch.Tensor:
     """Launch K1: rows (S, D) int32, cb (W, D) int8, H (W, f) int8, all
     contiguous on one CUDA device, f a multiple of 32, T >= 1 -> V (S, f)
-    int32; one launch per slice of :func:`siggen_slices`."""
+    int32; one grid per slice of :func:`siggen_slices`."""
     if rows.dtype != torch.int32 or cb.dtype != torch.int8 \
             or H.dtype != torch.int8:
         raise TypeError("siggen_accumulate takes rows int32, cb int8, H int8")

@@ -72,8 +72,7 @@ class RowwaveGeometry:
     segments: int          # segments of the widest reference (Lr)
     pairs_per_block: int
     smem_bytes: int        # dynamic shared memory per block
-    scratch_per_pair: int  # bytes of a pair's profile (past 54 segments,
-                           # with its H row and masks) in global memory;
+    scratch_per_pair: int  # bytes of a pair's buffer in global memory;
                            # 0: all in shared memory
 
 
@@ -85,30 +84,22 @@ def rowwave_geometry(Lq: int, Lr: int) -> RowwaveGeometry:
     row (int32) and a PAD mask word per lane of each segment; as many
     pairs per block (4, 2 or 1) as shared memory holds beside the BLOSUM
     table. Where one pair's buffer does not fit a block (past 8 segments)
-    the profile moves to per-pair global scratch and the H rows and masks
-    stay, as many pairs a block as fit; past 54 segments they move to the
-    scratch too, 4 pairs a block. Lq does not enter: the rows are the
-    warp's loop."""
+    it moves to per-pair global scratch, 4 pairs a block. Lq does not
+    enter: the rows are the warp's loop."""
     cpt = next((c for c in ROWWAVE_CPT if 32 * c >= Lr), ROWWAVE_CPT[-1])
     cols = 32 * cpt
     segments = -(-Lr // cols)
-    prof = 21 * cols * segments
-    row = (4 * cols + 4 * 32) * segments if segments > 1 else 0
+    per_warp = 21 * cols * segments
+    if segments > 1:
+        per_warp += (4 * cols + 4 * 32) * segments
     avail = SMEM_BLOCK_MAX - 4 * 21 * 21
-
-    def geometry(smem_per_warp, scratch):
-        ppb = next((p for p in (ROWWAVE_WARPS, 2) if p * smem_per_warp
-                    <= avail), 1)
+    if per_warp > avail:   # past 8 segments: in per-pair global scratch
         return RowwaveGeometry(cpt=cpt, segments=segments,
-                               pairs_per_block=ppb,
-                               smem_bytes=ppb * smem_per_warp,
-                               scratch_per_pair=scratch)
-
-    if prof + row <= avail:
-        return geometry(prof + row, 0)
-    if row <= avail:
-        return geometry(row, prof)
-    return geometry(0, prof + row)
+                               pairs_per_block=ROWWAVE_WARPS, smem_bytes=0,
+                               scratch_per_pair=per_warp)
+    ppb = next(p for p in (ROWWAVE_WARPS, 2, 1) if p * per_warp <= avail)
+    return RowwaveGeometry(cpt=cpt, segments=segments, pairs_per_block=ppb,
+                           smem_bytes=ppb * per_warp, scratch_per_pair=0)
 
 
 @functools.lru_cache(maxsize=8)

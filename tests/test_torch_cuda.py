@@ -436,9 +436,9 @@ def _twin_dists(q, r, rows=8):
 @pytest.mark.parametrize("Q", [1, 64, 70])
 @pytest.mark.parametrize("nw", [1, 2, 8, 9, 16, 32])
 def test_hamming_dist_kernel_any_width_on_card(cuda_device, nw, Q, R):
-    """K2 against its twin, both store variants up to 8 words (one word a
-    row start: R = 454,401 shifts every row's 16-byte groups; R = 1 and 3
-    are ragged groups only; Q = 70 is past one 64-row query tile)."""
+    """K2 against its twin (one word a row start: R = 454,401 shifts every
+    row's 16-byte groups; R = 1 and 3 are ragged groups only; Q = 70 is
+    past one 64-row query tile)."""
     from repro_torch.kernels.hamming import hamming_dist
     rng = np.random.default_rng(nw * 7 + Q + R)
     q = u32_to_i32(rng.integers(0, 2**32, (Q, nw), dtype=np.uint64)
@@ -446,10 +446,9 @@ def test_hamming_dist_kernel_any_width_on_card(cuda_device, nw, Q, R):
     r = u32_to_i32(rng.integers(0, 2**32, (R, nw), dtype=np.uint64)
                    .astype(np.uint32)).to(cuda_device)
     want = _twin_dists(q, r)
-    for bulk in ((False, True) if nw <= 8 else (False,)):
-        got = hamming_dist(q, r, bulk=bulk)
-        torch.cuda.synchronize()
-        assert torch.equal(got, want), (bulk, int((got != want).sum()))
+    got = hamming_dist(q, r)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), int((got != want).sum())
     ops.reset_launches()
     assert torch.equal(ops.all_pairs_hamming(q, r), want)
     assert ops.LAUNCHES["hamming_dist"] == 1
@@ -475,13 +474,13 @@ def test_count_kernel_16_words_on_card(cuda_device, Q, R, d):
 @pytest.mark.parametrize("f", [288, 512])
 @pytest.mark.parametrize("T", [1, 13])
 def test_siggen_kernel_wide_on_card(cuda_device, f, T):
-    """K1 past 256 columns: one launch per 256-column slice, each writing
-    its columns of V."""
+    """K1 past 256 columns: one launch, a grid per 256-column slice, each
+    writing its columns of V."""
     rows, cb, H = _siggen_inputs(1000, 3, f, 31)
     t = [a.to(cuda_device) for a in (rows, cb, H)]
     ops.reset_launches()
     got = ops.signatures_fused(*t, T=T)
-    assert ops.LAUNCHES["siggen_accumulate"] == 2
+    assert ops.LAUNCHES["siggen_accumulate"] == 1
     assert torch.equal(got, ref.siggen_accumulate_ref(*t, T))
 
 
@@ -512,9 +511,8 @@ def test_wave_kernel_long_queries_on_card(cuda_device, gap_mode, Lq, Lr):
 @pytest.mark.parametrize("Lq,Lr", [(40, 8193), (300, 8193), (40, 34_350),
                                    (3, 34_350), (200, 9000), (3, 60_000)])
 def test_rowwave_kernel_long_references_on_card(cuda_device, Lq, Lr):
-    """K7 past 8 segments: the warp's profile in per-pair global scratch
-    (loaded a segment ahead), its H row and masks in shared memory, and
-    past 54 segments (Lr = 60,000) in the scratch too; == its twin ==
+    """K7 past 8 segments: the warp's profile, H row and masks in per-pair
+    global scratch (the scores loaded a segment ahead); == its twin ==
     K3."""
     from repro_torch.kernels.sw import rowwave_geometry
     qs, rs = _wave_block(5, Lq, Lr, Lq * 3 + Lr)

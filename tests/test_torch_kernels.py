@@ -493,10 +493,8 @@ def test_rowwave_geometry(Lr):
     21 x 32 x cpt int8 profile a segment plus, past one segment, the H row
     and a mask word a lane; 4, 2 or 1 pairs a block, as many as fit the
     card's 227 KB beside the BLOSUM table. Past 8 segments, where one
-    pair's buffer does not fit, the profile sits in per-pair global
-    scratch and the H rows and masks in shared memory; past 54 segments
-    they join the profile in the scratch, 4 pairs a block. Lq does not
-    enter."""
+    pair's buffer does not fit, the whole buffer sits in per-pair global
+    scratch, 4 pairs a block. Lq does not enter."""
     from repro_torch.kernels.sw import ROWWAVE_CPT, rowwave_geometry
     g = rowwave_geometry(1, Lr)
     assert all(rowwave_geometry(Lq, Lr) == g for Lq in (384, 8192))
@@ -509,13 +507,11 @@ def test_rowwave_geometry(Lr):
     room = 232_448 - 4 * 21 * 21
     assert (g.scratch_per_pair > 0) == (g.segments > 8) == (prof + row > room)
     assert g.scratch_per_pair % 16 == 0
-    if g.segments > 54:                  # everything in the scratch
+    if g.scratch_per_pair:               # everything in the scratch
         assert g.scratch_per_pair == prof + row
         assert g.smem_bytes == 0 and g.pairs_per_block == 4
         return
-    in_smem = row if g.scratch_per_pair else prof + row
-    assert g.scratch_per_pair in (0, prof)
-    assert g.smem_bytes == g.pairs_per_block * in_smem
+    assert g.smem_bytes == g.pairs_per_block * (prof + row)
     assert g.smem_bytes <= room
     assert g.pairs_per_block == 4 or 2 * g.smem_bytes > room
 
