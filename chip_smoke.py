@@ -27,10 +27,39 @@ Phases, any failure exits non-zero:
               d=2, the paper's own ``perf_config()`` (java hash, d=0, flip;
               a query prefix if its pairs do not fit), and the flip-layout
               index serving phase 2's queries.
-4. siggen   — the index of NC_000913 scale (4,146 refs, mean length 316)
+4. persist  — index persistence on the index of phase 2 (454,401 refs):
+              saved as a segment directory, grown by 4,096 refs and saved
+              again (exactly one segment file written), loaded onto the
+              card with its config: signatures, validity and CSR equal to
+              the index in memory, and the phase-2 queries served by both
+              in probe and dense modes with the SW re-rank give the same
+              top-k ids, distances and SW scores; the legacy ``.npz``
+              round trip; a wrong ``expected_cfg`` raises; a scripted torn
+              write (``FaultPlan`` at ``store.write``) leaves the previous
+              manifest loadable; a truncated segment raises
+              ``CorruptSegment`` naming the file, and ``recover=True``
+              serves the valid prefix (phase 2's top-k exactly) and
+              reports what it dropped; occupancy statistics logged.
+5. siggen   — the index of NC_000913 scale (4,146 refs, mean length 316)
               built with ``siggen_method="matmul"`` (kernel K1) must carry
               the same signatures as the table path.
-5. allpairs — the all-vs-all path at myva scale (192,987 sequences, mean
+6. quality  — the paper's §5.2 evaluation at NC_000913 scale with
+              ``quality_config()`` (k=4, T=22, java, d=0, flip), 512
+              homolog queries (sub_rates 0.03, 0.10, 0.20) and 512 decoys:
+              the table path (k=4 tables built on the card) and the matmul
+              path (K1 at k=4) give identical signatures and feature
+              counts; ``ScalLoPS.search`` with the non-zero-signature
+              masks; ``batch_percent_identity`` over the emitted pairs (at
+              most 4,096), equal to the PID wave, whose scores K7
+              (``sw_align_batch``) and K3 (``sw_wave_linear``) match on
+              every pair; ``percent_identity`` on 8 pairs; the
+              seed-and-extend baseline over as many queries as fit in
+              45 s; recall, precision, PID quartiles and the intersection
+              with the baseline logged for information; card == CPU on
+              256 refs and 64 queries (pairs, PIDs, baseline hits; both
+              sides search the card's signatures: the k=4 tables take
+              minutes to build on the host).
+7. allpairs — the all-vs-all path at myva scale (192,987 sequences, mean
               length 305, planted families of 4): ``all_pairs_search``
               on the card (join through K5, ungapped prefilter K4,
               Smith-Waterman K3), timed by stage; the card's join must
@@ -39,10 +68,10 @@ Phases, any failure exits non-zero:
               give the wavefront's scores; and ``all_pairs_ingest`` of the
               last 4,096 rows onto a run over the rest must give the full
               run's family labels.
-6. joins    — the self-join's two routes (keyed dup-free and sort-dedup)
+8. joins    — the self-join's two routes (keyed dup-free and sort-dedup)
               on the first 40,000 myva rows, where both apply: the same
               pairs, each route timed.
-7. kernels  — every kernel held exactly against its plain torch twin and
+9. kernels  — every kernel held exactly against its plain torch twin and
               timed on the card alone (its launches captured in one CUDA
               graph): on the inputs the main paths gave it first, and K4
               and K7 on one full wave of their most used shape; K2 and K6
@@ -54,13 +83,15 @@ Phases, any failure exits non-zero:
               full wave, and the first wave of that shape as the plan fills
               it (PAD slots included). Each logs its kernel share of its
               stage (K7: the row-wave step): launches x the real-fill
-              wave's ms over the stage's wall clock.
-8. small    — a 2,000-ref index served, and a 2,000-sequence corpus
+              wave's ms over the stage's wall clock. K1's first launch
+              at k=4 (phase 6) has a row of its own,
+              ``siggen_accumulate_k4``.
+10. small   — a 2,000-ref index served, and a 2,000-sequence corpus
               clustered by ``all_pairs_search`` (the kernel route above,
               and the default PID route), ``ScalLoPS.search`` with each
               join and a flip index's ``topk_probe``, on the card and on
               the CPU (the twins): identical outputs.
-9. wide     — widths and lengths past the kernels' old limits: f = 512
+11. wide    — widths and lengths past the kernels' old limits: f = 512
               (16 words) at NC_000913 scale through K1 (``siggen_method=
               "matmul"``, a grid per 256-column slice), the dense
               top-k (K2) and the dense join at d=1 (K6, then K2), card ==
@@ -76,12 +107,14 @@ Phases, any failure exits non-zero:
 
 Each path is driven with every launch count set to 0 just before it and
 read just after it: serving (phase 2), each join's ``search_pairs``
-(phase 3; the dense join's is K6's path), the K1 build (phase 4), and in
-phase 5 the timed ``all_pairs_search`` (the all-pairs main path), the row
-wave over the survivors (K7's path), the base run and the ingest, each on
-its own, and in phase 9 each wide or long path. K2's row also times the
-dense join's first emission tile. The kernel wrappers record their first inputs throughout phases
-2-5. The build logs ptxas's registers and spills of every sw.cu
+(phase 3; the dense join's is K6's path), the whole of phase 4, the K1
+build (phase 5), phase 6's matmul build (K1 at k=4) and its scoring (K7,
+K3), and in phase 7 the timed ``all_pairs_search`` (the all-pairs main
+path), the row wave over the survivors (K7's path), the base run and the
+ingest, each on its own, and in phase 11 each wide or long path. K2's row
+also times the dense join's first emission tile. The kernel wrappers
+record their first inputs throughout phases 2-7, phase 6 into a record of
+its own. The build logs ptxas's registers and spills of every sw.cu
 and siggen.cu kernel. The output ends with the card's ``nvidia-smi`` name
 and power limit, one JSON line of kernels, and the ``ok`` line. Needs one CUDA
 card; imports nothing of JAX.
@@ -130,6 +163,12 @@ MAX_GROW = 1 << 28      # search_pairs' capacity limit in phase 3
 JOIN_ROUTE_ROWS = 40_000  # <= PACKED_KEY_MAX_ID: both pack routes apply
 WIDE_F = 512            # [wide]: signature bits past 256 (16 words)
 LONG_CHAINS = (8_193, 12_000, 34_350)   # [wide]: residues (titin ~34,350)
+PERSIST_ADD = 4_096     # [persist]: refs add()ed before the delta save
+PERSIST_TORN = 64       # [persist]: refs of the save the torn write hits
+QUALITY_QUERIES = (512, 512)   # [quality]: homolog and decoy queries
+PID_PAIRS = 4_096       # [quality]: emitted pairs aligned for PID, at most
+SEED_EXTEND_S = 45.0    # [quality]: seconds of seed-and-extend search
+QUALITY_CPU = (256, 64)  # [quality]: refs and queries of card == CPU
 
 
 def _dataset(name: str) -> dict:
@@ -578,6 +617,404 @@ def phase_search(torch, ops, dev, index, serve_data, serve_probe, log):
     del fidx, eng
     torch.cuda.empty_cache()
     return launches["dense"], emission
+
+
+def _padded(*blocks):
+    """Row blocks of residues (ids (N, L) int8) stacked into one (sum N,
+    max L) block, PAD past each block's width."""
+    from repro_torch.core.alphabet import PAD
+    width = max(b.shape[1] for b in blocks)
+    out = np.full((sum(b.shape[0] for b in blocks), width), PAD, np.int8)
+    row = 0
+    for b in blocks:
+        out[row:row + b.shape[0], :b.shape[1]] = b
+        row += b.shape[0]
+    return out
+
+
+def _topk_sw(torch, nid, q_ids, ref_ids, gap_mode, dev):
+    """SW scores of every (query, neighbour) pair of a top-k, through K3
+    (``sw_wave_linear`` / ``sw_wave_affine``): (n,) int32 numpy."""
+    from repro_torch.align import sw_wave_affine, sw_wave_linear
+    qi, ki = np.nonzero(nid >= 0)
+    fn = sw_wave_linear if gap_mode == "linear" else sw_wave_affine
+    return fn(q_ids[qi], ref_ids[nid[qi, ki]], device=dev).cpu().numpy()
+
+
+def phase_persist(torch, ops, dev, index, serve_data, serve_probe, log):
+    """Index persistence at Swiss-Prot scale on the index of phase 2 (it
+    grows by PERSIST_ADD + PERSIST_TORN rows here)."""
+    import tempfile
+
+    from repro_torch.faults import FaultPlan, InjectedFault
+    from repro_torch.data.synthetic import (SyntheticProteinConfig,
+                                            make_protein_sets)
+    from repro_torch.index import (IndexConfigMismatch, SignatureIndex,
+                                   occupancy_report)
+    from repro_torch.index.segments import CorruptSegment
+    from repro_torch.index.service import (QueryEngine, ServingConfig,
+                                           topk_probe)
+
+    t_phase = time.perf_counter()
+    cfg = index.cfg
+    sp = _dataset("swissprot")
+    new = make_protein_sets(SyntheticProteinConfig(
+        n_refs=PERSIST_ADD + PERSIST_TORN, ref_len_mean=sp["avg_len"],
+        ref_len_std=80, n_homolog_queries=0, n_decoy_queries=0, seed=1))
+    qi, ql = serve_data["query_ids"], serve_data["query_lens"]
+    n0 = index.size
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def same_csr(a, b):
+        a._ensure_built()
+        b._ensure_built()
+        return len(a._csr_np) == len(b._csr_np) and all(
+            np.array_equal(x, y) and x.dtype == y.dtype
+            for ca, cb in zip(a._csr_np, b._csr_np) for x, y in zip(ca, cb))
+
+    def serve(idx, mode, gap_mode, refs):
+        eng = QueryEngine(idx, ServingConfig(
+            k=10, max_batch=64, rerank=True, mode=mode, gap_mode=gap_mode),
+            ref_seqs=refs)
+        return eng.query_batch(qi, ql)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp) / "swissprot"
+        files, save_s = timed(lambda: index.save(d))
+        if files != 1:
+            raise AssertionError(f"the first save wrote {files} files")
+        index.add(new["ref_ids"][:PERSIST_ADD], new["ref_lens"][:PERSIST_ADD])
+        files, delta_s = timed(lambda: index.save(d))
+        if files != 1:
+            raise AssertionError(f"the save after add() wrote {files} "
+                                 f"segment files, not 1")
+        def load_onto_card():
+            idx = SignatureIndex.load(d, cfg, device=dev)
+            idx.partition(1).device_slabs()
+            idx.device_sigs
+            return idx
+
+        loaded, load_s = timed(load_onto_card)
+        if not (loaded.epoch == 2 and loaded.device == index.device
+                and np.array_equal(loaded.sigs, index.sigs)
+                and np.array_equal(loaded.valid, index.valid)
+                and same_csr(loaded, index)):
+            raise AssertionError("the loaded index differs from the one "
+                                 "in memory")
+        size = sum(p.stat().st_size for p in d.glob("*"))
+        log(f"[persist] {n0} refs saved as a segment directory in "
+            f"{save_s:.3f} s; add() of {PERSIST_ADD} refs then save: 1 "
+            f"segment file written in {delta_s:.3f} s; {size / 1e6:.1f} MB "
+            f"on disk; loaded onto the card in {load_s:.3f} s (slabs and "
+            f"signatures uploaded): signatures, validity and CSR equal to "
+            f"the index in memory")
+        refs = (_padded(serve_data["ref_ids"],
+                        new["ref_ids"][:PERSIST_ADD]),
+                np.concatenate([serve_data["ref_lens"],
+                                new["ref_lens"][:PERSIST_ADD]]))
+        for mode, gap_mode in (("probe", "linear"), ("dense", "affine")):
+            (a, b), serve_s = timed(lambda: [
+                serve(x, mode, gap_mode, refs) for x in (index, loaded)])
+            if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])):
+                raise AssertionError(f"mode {mode}: the loaded index serves "
+                                     f"another top-k than the one in memory")
+            sa = _topk_sw(torch, a[0], qi, refs[0], gap_mode, dev)
+            sb = _topk_sw(torch, b[0], qi, refs[0], gap_mode, dev)
+            if not np.array_equal(sa, sb):
+                raise AssertionError(f"mode {mode}: SW scores differ")
+            log(f"[persist] mode={mode} gap_mode={gap_mode}: {len(ql)} "
+                f"queries served by the loaded index and the one in memory "
+                f"({serve_s:.3f} s both): top-k ids, distances and the "
+                f"{len(sa)} SW scores identical")
+        q_sigs = index._pipeline.signatures(qi, ql)
+        p = Path(tmp) / "swissprot.npz"
+        _, npz_save_s = timed(lambda: index.save(p))
+        mono, npz_load_s = timed(lambda: SignatureIndex.load(p, cfg,
+                                                             device=dev))
+        want = topk_probe(index, q_sigs, k=10, cap=64)
+        got = topk_probe(mono, q_sigs, k=10, cap=64)
+        if not (same_csr(mono, index) and all(
+                torch.equal(x, y) for x, y in zip(want[:2], got[:2]))):
+            raise AssertionError("the legacy .npz round trip differs")
+        log(f"[persist] legacy .npz: saved {npz_save_s:.3f} s "
+            f"({p.stat().st_size / 1e6:.1f} MB), loaded {npz_load_s:.3f} s; "
+            f"CSR and probe top-k equal")
+        try:
+            SignatureIndex.load(d, replace(cfg, k=4, T=22), device=dev)
+        except IndexConfigMismatch as err:
+            log(f"[persist] a wrong expected_cfg raises IndexConfigMismatch:"
+                f" {err}")
+        else:
+            raise AssertionError("a wrong expected_cfg loaded")
+        index.add(new["ref_ids"][PERSIST_ADD:], new["ref_lens"][PERSIST_ADD:])
+        plan = FaultPlan().add("store.write", "torn", on=1, frac=0.5)
+        try:
+            with plan:
+                index.save(d)
+        except InjectedFault as err:
+            torn = err
+        else:
+            raise AssertionError("the scripted torn write did not fire")
+        before = SignatureIndex.load(d, cfg, device=dev)
+        if not (before.size == n0 + PERSIST_ADD and np.array_equal(
+                before.sigs, index.sigs[:before.size])):
+            raise AssertionError("after a torn segment write the previous "
+                                 "manifest does not load whole")
+        if index.save(d) != 1 or SignatureIndex.load(
+                d, cfg, device=dev).size != index.size:
+            raise AssertionError("the save after the torn write did not "
+                                 "append the segment")
+        log(f"[persist] a FaultPlan torn write at store.write ({torn}) left "
+            f"the previous manifest loadable ({before.size} refs); the next "
+            f"save appended the segment ({index.size} refs)")
+        victim = d / "seg-g000-00001.npz"
+        blob = victim.read_bytes()
+        victim.write_bytes(blob[:len(blob) // 3])
+        try:
+            SignatureIndex.load(d, device=dev)
+        except CorruptSegment as err:
+            if victim.name not in err.file:
+                raise AssertionError(f"CorruptSegment names {err.file}")
+            log(f"[persist] a truncated segment raises CorruptSegment: {err}")
+        else:
+            raise AssertionError("a truncated segment loaded")
+        rec, recover_s = timed(lambda: SignatureIndex.load(
+            d, cfg, recover=True, device=dev))
+        r = rec.recovery
+        if not (r and r["n_rows_served"] == n0 == rec.size
+                and r["n_segments_dropped"] == 2):
+            raise AssertionError(f"recovery report {r}")
+        nid, nd = serve(rec, "probe", "linear",
+                        (serve_data["ref_ids"], serve_data["ref_lens"]))
+        if not (np.array_equal(nid, serve_probe[0])
+                and np.array_equal(nd, serve_probe[1])):
+            raise AssertionError("the recovered prefix serves another top-k "
+                                 "than the index of [serve]")
+        log(f"[persist] recover=True in {recover_s:.3f} s served the valid "
+            f"prefix ({rec.size} refs: the [serve] top-k exactly) and "
+            f"reported: dropped {r['n_segments_dropped']} segments, "
+            f"{r['n_rows_dropped']} rows, quarantined "
+            f"{sorted(r['quarantined'])}")
+        for line in occupancy_report(loaded).splitlines():
+            log(f"[persist] stats {line}")
+    wall = time.perf_counter() - t_phase
+    log(f"[persist] phase wall clock {wall:.1f} s")
+    return dict(save_s=save_s, delta_save_s=delta_s, load_s=load_s,
+                wall_s=wall)
+
+
+def _pair_blocks(pairs, q_ids, q_lens, r_ids, r_lens):
+    """(qm, rm) PAD-padded int8 blocks of (q, r) pair rows, each side as
+    wide as its longest member."""
+    from repro_torch.core.alphabet import PAD
+    qm = np.full((len(pairs), int(q_lens[pairs[:, 0]].max())), PAD, np.int8)
+    rm = np.full((len(pairs), int(r_lens[pairs[:, 1]].max())), PAD, np.int8)
+    for n, (q, r) in enumerate(pairs[:, :2]):
+        qm[n, :q_lens[q]] = q_ids[q, :q_lens[q]]
+        rm[n, :r_lens[r]] = r_ids[r, :r_lens[r]]
+    return qm, rm
+
+
+def _quality_card_vs_cpu(torch, dev, cfg, data, log):
+    """The quality path on QUALITY_CPU's refs and queries on the card and
+    on the CPU: the same pairs, PIDs and seed-and-extend hits. Both sides
+    search the card's signatures (the k=4 tables would take minutes to
+    build on the host)."""
+    from repro_torch.align import SeedExtendBaseline, batch_percent_identity
+    from repro_torch.core.pipeline import ScalLoPS
+
+    n_r, n_q = QUALITY_CPU
+    kids = [q for q, (p, _) in enumerate(data["truth"]) if 0 <= p < n_r]
+    decoys = [q for q, (p, _) in enumerate(data["truth"]) if p < 0]
+    sel = np.array((kids + decoys)[:n_q])
+    refs = (data["ref_ids"][:n_r], data["ref_lens"][:n_r])
+    queries = (data["query_ids"][sel], data["query_lens"][sel])
+    sl = ScalLoPS(cfg, device=dev)
+    sides = [(sl.signatures(*x), sl.feature_counts(*x) > 0)
+             for x in (refs, queries)]
+    out = []
+    for where in (dev, "cpu"):
+        (rs, rv), (qs, qv) = [(a.to(where), b.to(where)) for a, b in sides]
+        res = ScalLoPS(cfg, device=where).search(qs, rs, q_valid=qv,
+                                                 r_valid=rv)
+        pairs = res.pairs[res.pairs[:, 0] >= 0].cpu().numpy()
+        pid = batch_percent_identity(pairs, *queries, *refs, device=where)
+        hits = SeedExtendBaseline(k=3, T=11, s_min=35, device=where
+                                  ).build_index(*refs).search(*queries)
+        out.append((pairs, pid, hits))
+    (pa, ia, ha), (pb, ib, hb) = out
+    if not (np.array_equal(pa, pb) and np.array_equal(ia, ib)
+            and ha == hb):
+        raise AssertionError("[quality] card and CPU differ in pairs, PIDs "
+                             "or seed-and-extend hits")
+    log(f"[quality] card == CPU on {n_r} refs x {len(sel)} queries "
+        f"({len(kids[:n_q])} homologs of those refs): {len(pa)} pairs, their "
+        f"PIDs, and {len(ha)} seed-and-extend hits identical")
+
+
+def phase_quality(torch, ops, dev, log):
+    """The paper's §5.2 quality evaluation at NC_000913 scale. Returns
+    the kernel launches of the matmul build (K1 at k=4) and of the
+    scoring (K7, K3), and the phase's seconds."""
+    from repro_torch.align import (SeedExtendBaseline,
+                                   batch_percent_identity, percent_identity,
+                                   sw_align_batch, sw_wave_linear)
+    from repro_torch.align.smith_waterman import sw_wave_pid
+    from repro_torch.configs.scallops import quality_config
+    from repro_torch.core.join import pairs_to_set
+    from repro_torch.core.pipeline import ScalLoPS
+    from repro_torch.data.synthetic import (SyntheticProteinConfig,
+                                            make_protein_sets)
+
+    t_phase = time.perf_counter()
+    nc = _dataset("NC_000913")
+    n_hom, n_dec = QUALITY_QUERIES
+    t0 = time.perf_counter()
+    data = make_protein_sets(SyntheticProteinConfig(
+        n_refs=nc["n"], ref_len_mean=nc["avg_len"], ref_len_std=80,
+        n_homolog_queries=n_hom, n_decoy_queries=n_dec,
+        sub_rates=(0.03, 0.10, 0.20), seed=0))
+    refs = (data["ref_ids"], data["ref_lens"])
+    queries = (data["query_ids"], data["query_lens"])
+    log(f"[quality] data: {nc['n']} refs (mean length "
+        f"{refs[1].mean():.1f}), {n_hom} homolog queries at sub_rates "
+        f"(0.03, 0.10, 0.20) and {n_dec} decoys, generated in "
+        f"{time.perf_counter() - t0:.1f} s on the host")
+    cfg = quality_config()
+    sl = ScalLoPS(cfg, device=dev)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    _, contrib_s = timed(lambda: sl.signatures(refs[0][:1], refs[1][:1]))
+    _, count_s = timed(lambda: sl.feature_counts(refs[0][:1], refs[1][:1]))
+    sides, table_s = timed(lambda: [
+        (sl.signatures(*x), sl.feature_counts(*x)) for x in (refs, queries)])
+    sm = ScalLoPS(replace(cfg, siggen_method="matmul"), device=dev)
+    t0 = time.perf_counter()
+    mat, k1_l = _window(torch, ops, lambda: [
+        (sm.signatures(*x), sm.feature_counts(*x)) for x in (refs, queries)])
+    matmul_s = time.perf_counter() - t0
+    for (ts, tc), (ms, mc) in zip(sides, mat):
+        if not (torch.equal(ts, ms) and torch.equal(tc, mc)):
+            raise AssertionError("k=4: the matmul path (K1) and the table "
+                                 "path give other signatures or counts")
+    log(f"[quality] quality_config() {cfg}: k=4 tables built on the card "
+        f"by the first calls, contribution table {contrib_s:.3f} s, feature "
+        f"count table {count_s:.3f} s; table path over refs and queries "
+        f"{table_s:.3f} s, matmul path (K1 at k=4) {matmul_s:.3f} s with "
+        f"launches {json.dumps(k1_l)}: identical signatures and feature "
+        f"counts")
+    (rs, rc), (qs, qc) = sides
+    rv, qv = rc > 0, qc > 0
+    mp = cfg.max_pairs
+    while True:
+        res = sl.search(qs, rs, max_pairs=mp, q_valid=qv, r_valid=rv)
+        if not bool(res.overflowed):
+            break
+        mp *= 2
+    got = pairs_to_set(res.pairs)
+    pairs = res.pairs[res.pairs[:, 0] >= 0].cpu().numpy()
+    truth = {(q, p) for q, (p, _) in enumerate(data["truth"]) if p >= 0}
+    cut = pairs[:PID_PAIRS]
+    log(f"[quality] ScalLoPS.search (flip, d=0, non-zero-signature masks: "
+        f"{int(rv.sum())} of {len(rv)} refs, {int(qv.sum())} of {len(qv)} "
+        f"queries valid): {len(pairs)} pairs (max_pairs {mp}); recall "
+        f"{len(got & truth) / len(truth):.4f}, precision "
+        f"{len(got & truth) / max(len(got), 1):.4f} (for information); "
+        f"PID over {len(cut)} of them"
+        + (f" (the first {PID_PAIRS}, cut from {len(pairs)})"
+           if len(pairs) > PID_PAIRS else ""))
+    pid, pid_s = timed(lambda: batch_percent_identity(cut, *queries, *refs,
+                                                      device=dev))
+    qm, rm = _pair_blocks(cut, *queries, *refs)
+    (pid2, length, score), wave_pid_s = timed(lambda: sw_wave_pid(
+        torch.as_tensor(qm, device=dev), torch.as_tensor(rm, device=dev)))
+    if np.isnan(pid).any() or not np.array_equal(pid, pid2):
+        raise AssertionError("batch_percent_identity differs from the PID "
+                             "wave on the same blocks")
+    (k7, k3), sw_l = _window(torch, ops, lambda: (
+        sw_align_batch(qm, rm, device=dev),
+        sw_wave_linear(qm, rm, device=dev).cpu().numpy()))
+    if not (np.array_equal(k7, score) and np.array_equal(k3, score)):
+        raise AssertionError("K7 and K3 scores differ from the PID path's")
+    for n in range(min(8, len(cut))):
+        q, r = cut[n, :2]
+        one = percent_identity(queries[0][q, :queries[1][q]],
+                               refs[0][r, :refs[1][r]], device=dev)
+        if one != (pid[n], length[n], score[n]):
+            raise AssertionError(f"percent_identity of pair {n}: {one} != "
+                                 f"the batch's {pid[n], length[n], score[n]}")
+    q1, med, q3 = np.percentile(pid, [25, 50, 75]) if len(pid) else (0,) * 3
+    log(f"[quality] batch_percent_identity over {len(cut)} pairs "
+        f"{pid_s:.3f} s (the PID wave on the same blocks {wave_pid_s:.3f} s:"
+        f" equal); PID quartiles {q1:.1f} / {med:.1f} / {q3:.1f}; "
+        f"sw_align_batch (K7) and sw_wave_linear (K3) == the PID path's "
+        f"scores on every pair (launches {json.dumps(sw_l)}); "
+        f"percent_identity == the batch on {min(8, len(cut))} pairs")
+    base = SeedExtendBaseline(k=3, T=11, s_min=35, device=dev)
+    _, se_build_s = timed(lambda: base.build_index(*refs))
+    hits, n_q = [], 0
+    t0 = time.perf_counter()
+    while n_q < len(queries[1]) and time.perf_counter() - t0 < SEED_EXTEND_S:
+        part = base.search(queries[0][n_q:n_q + 8], queries[1][n_q:n_q + 8])
+        hits += [(q + n_q, r, s) for q, r, s in part]
+        n_q += 8
+    se_s = time.perf_counter() - t0
+    bl = {(q, r) for q, r, _ in hits}
+    mine = {(q, r) for q, r in got if q < n_q}
+    log(f"[quality] SeedExtendBaseline(k=3, T=11, s_min=35): index over "
+        f"{nc['n']} refs {se_build_s:.3f} s; {n_q} queries searched in "
+        f"{se_s:.1f} s ({len(hits)} hits); ScalLoPS pairs of those queries "
+        f"found by the baseline: {len(mine & bl)} of {len(mine)} "
+        f"(intersection {len(mine & bl) / max(len(mine), 1):.4f}, for "
+        f"information)")
+    _quality_card_vs_cpu(torch, dev, cfg, data, log)
+    wall = time.perf_counter() - t_phase
+    log(f"[quality] phase wall clock {wall:.1f} s")
+    launches = dict(k1_l)
+    launches.update({k: v for k, v in sw_l.items() if v})
+    return launches, dict(contrib_table_s=contrib_s, count_table_s=count_s,
+                          wall_s=wall, seed_extend_queries=n_q)
+
+
+def phase_kernel_k4(torch, record, launches, log):
+    """K1's first launch at k=4 (the [quality] matmul build) held against
+    its twin and timed, as ``phase_kernels`` does the others: its JSON row
+    ``siggen_accumulate_k4``. The twin builds its score matrix 2,048 rows
+    at a time (160,000 float64 words a row)."""
+    import functools
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.siggen import siggen_accumulate
+
+    args, kw = record
+    twin = functools.partial(ref.siggen_accumulate_ref, block=2048)
+    got, err, ms, plain_ms, bound_ms, bound_by = _check_and_time(
+        torch, "siggen_accumulate", args, kw, siggen_accumulate, twin, 10, 0)
+    del got
+    shapes = " x ".join(str(tuple(a.shape)) for a in args)
+    log(f"[kernels] siggen_accumulate_k4 at {shapes} {json.dumps(kw)}: exact "
+        f"vs twin; kernel {ms:.4f} ms (device, 10 launches in one CUDA "
+        f"graph), twin {plain_ms:.4f} ms, bound {bound_ms * 1e3:.3f} us "
+        f"({bound_by}; {100 * bound_ms / ms:.1f}% of it), {launches} "
+        f"launches on the [quality] path")
+    torch.cuda.empty_cache()
+    return dict(name="siggen_accumulate_k4", route="cuda",
+                source=KERNELS["siggen_accumulate"][0],
+                replaces=KERNELS["siggen_accumulate"][1], launches=launches,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
 
 
 def phase_siggen(torch, ops, dev, log):
@@ -1594,8 +2031,31 @@ def main() -> int:
                                       serve_probe, log)
     log(f"[main] kernel launches on the dense join's search_pairs (K6's "
         f"path): {json.dumps(search_l)}")
+    persist, persist_l = _window(torch, ops, lambda: phase_persist(
+        torch, ops, dev, index, serve_data, serve_probe, log))
+    log(f"[main] kernel launches on the [persist] path: "
+        f"{json.dumps(persist_l)}")
     del index, serve_data, serve_probe
     siggen_l = phase_siggen(torch, ops, dev, log)
+    # [quality] records into a dict of its own: K1's first launch at k=4
+    # is kept apart from its k=3 record, and no kernel's record moves
+    main_record, ops.RECORDED = ops.RECORDED, {}
+    quality_l, quality = phase_quality(torch, ops, dev, log)
+    k4_record = ops.RECORDED["siggen_accumulate"]
+    ops.RECORDED = main_record
+    log(f"[main] kernel launches on the [quality] paths (the matmul build, "
+        f"the scoring): {json.dumps(quality_l)}")
+    for path, counts, names in (
+            ("[persist]", persist_l, ("hamming_dist", "wave_scores_linear",
+                                      "wave_scores_affine")),
+            ("[quality]", quality_l, ("siggen_accumulate", "sw_rowwave",
+                                      "wave_scores_linear"))):
+        missing = [k for k in names if counts.get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the {path} "
+                                 f"path: {missing}")
+    log(f"[main] [persist] {json.dumps(persist)}; [quality] "
+        f"{json.dumps(quality)}")
     index, res, corpus, pair_l, rowwave_l, full, real, stages = \
         phase_allpairs(torch, ops, dev, log)
     recorded, ops.RECORDED = ops.RECORDED, None
@@ -1626,6 +2086,8 @@ def main() -> int:
               "sw_rowwave": rowwave_l["sw_rowwave"]}
     rows = phase_kernels(torch, recorded, full, real, stages, launches,
                          wave_l, emission, log)
+    rows.append(phase_kernel_k4(torch, k4_record,
+                                quality_l["siggen_accumulate"], log))
     phase_small(torch, dev, log)
     wide = phase_wide(torch, ops, dev, log)
     log(f"[main] kernel launches on the [wide] paths: "

@@ -24,6 +24,9 @@ PAD (and anything outside the alphabet) scores the sentinel ``SENT8`` in
 the substitution table, as do cells with j outside [0, Lr): a DP path that
 enters a sentinel region never leaves it and never beats the best valid
 cell, so scores equal those of the masked row wave.
+
+``sw_wave_linear`` and ``sw_wave_affine`` are the batched entry points:
+kernel K3 on the card (the default device), this sweep on the CPU.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ import numpy as np
 import torch
 
 from ..core.alphabet import ALPHABET_SIZE, BLOSUM62_PADDED, PAD
+from .smith_waterman import GAP, pair_block
 
 GAP_OPEN = -11   # BLOSUM62 companion defaults (BLAST -11/-1)
 GAP_EXTEND = -1
@@ -109,3 +113,23 @@ def wave_scores(qs: torch.Tensor, rs: torch.Tensor, *, gap_open: int,
         h1, h2s = h, h1s
     return best.amax(dim=1).to(torch.int32)
 
+
+
+def sw_wave_linear(qs, rs, *, gap: int = GAP, device=None) -> torch.Tensor:
+    """Batched linear-gap SW scores via the wavefront sweep: (B, Lq) x
+    (B, Lr) int8 (PAD-padded) -> (B,) int32 on the device. Scores
+    bit-exact with the row wave (``smith_waterman.sw_align_batch``)."""
+    from ..kernels import ops
+    return ops.wavefront_scores(*pair_block(qs, rs, device),
+                                gap_mode="linear", gap_open=gap)
+
+
+def sw_wave_affine(qs, rs, *, gap_open: int = GAP_OPEN,
+                   gap_extend: int = GAP_EXTEND, device=None) -> torch.Tensor:
+    """Batched affine-gap (Gotoh) SW scores via the wavefront sweep:
+    (B, Lq) x (B, Lr) int8 -> (B,) int32 on the device; bit-exact with
+    the oracle ``kernels.ref.sw_affine_ref`` on the unpadded pairs."""
+    from ..kernels import ops
+    return ops.wavefront_scores(*pair_block(qs, rs, device),
+                                gap_mode="affine", gap_open=gap_open,
+                                gap_extend=gap_extend)

@@ -16,6 +16,12 @@ from device-resident corpora and scores the block with one DP sweep:
 the blocks' device, as the reference computes them with jnp outside any
 Pallas kernel, and runs the traceback on the host: no kernel is ported
 for it.
+
+The paper's quality evaluation (§5.2) calls the pair API: ``sw_score``,
+``sw_align_batch`` and ``sw_scores_device`` score with the row wave
+(kernel K7 on the card); ``percent_identity`` and
+``batch_percent_identity`` trace back the best local alignment of each
+pair. They run on the card unless ``device="cpu"`` is passed.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import numpy as np
 import torch
 
 from ..core.alphabet import BLOSUM62_PADDED, PAD
+from ..util import resolve_device
 
 GAP = -4     # linear gap penalty (BLOSUM62-compatible default)
 NEG = -10**6  # masked-substitution sentinel (padded positions never win)
@@ -174,3 +181,71 @@ def sw_wave_pid(qs, rs, *, chunk: int = 32):
             length[i + n] = l
             score[i + n] = int(sc[n])
     return pid, length, score
+
+
+# ------------------------------------------------------------ the pair API
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def pair_block(qs, rs, device=None):
+    """(B, Lq) x (B, Lr) residues (arrays or tensors) as contiguous int8
+    tensors on ``device`` — the card unless another is named."""
+    dev = resolve_device(device)
+    return tuple(torch.as_tensor(x, dtype=torch.int8, device=dev).contiguous()
+                 for x in (qs, rs))
+
+
+def sw_scores_device(qs, rs, *, device=None) -> torch.Tensor:
+    """(B, Lq) x (B, Lr) int8 (PAD-padded) -> (B,) int32 best scores, left
+    on the device without a host sync (kernel K7 on the card)."""
+    from ..kernels import ops
+    return ops.sw_rowwave_scores(*pair_block(qs, rs, device))
+
+
+def sw_align_batch(qs, rs, *, device=None) -> np.ndarray:
+    """Batched best-scores: (N, Lq) x (N, Lr) -> (N,) int32 on the host."""
+    return sw_scores_device(qs, rs, device=device).cpu().numpy()
+
+
+def sw_score(q, r, *, device=None) -> int:
+    """Best local alignment score of one encoded pair."""
+    return int(sw_align_batch(_host(q)[None], _host(r)[None],
+                              device=device)[0])
+
+
+def percent_identity(q, r, *, device=None) -> tuple[float, int, int]:
+    """PID of the best local alignment of one encoded pair.
+
+    Returns (pid_percent, alignment_length, score).
+    """
+    pid, length, score = sw_wave_pid(
+        *pair_block(_host(q)[None], _host(r)[None], device), chunk=1)
+    return float(pid[0]), int(length[0]), int(score[0])
+
+
+def batch_percent_identity(pairs, q_ids, q_lens, r_ids, r_lens, *,
+                           device=None) -> np.ndarray:
+    """PID for each (qi, ri) row of a pair buffer; invalid rows -> nan.
+
+    Valid rows are gathered into padded blocks and scored as one DP wave per
+    chunk (bit-exact with the per-pair path, just batched).
+    """
+    pairs, q_ids, q_lens, r_ids, r_lens = (
+        _host(x) for x in (pairs, q_ids, q_lens, r_ids, r_lens))
+    out = np.full(len(pairs), np.nan)
+    rows = [(n, int(qi), int(ri)) for n, (qi, ri, *_) in enumerate(pairs)
+            if qi >= 0]
+    if not rows:
+        return out
+    Lq = int(max(q_lens[qi] for _, qi, _ in rows))
+    Lr = int(max(r_lens[ri] for _, _, ri in rows))
+    qm = np.full((len(rows), max(Lq, 1)), PAD, np.int8)
+    rm = np.full((len(rows), max(Lr, 1)), PAD, np.int8)
+    for n, (_, qi, ri) in enumerate(rows):
+        qm[n, :int(q_lens[qi])] = q_ids[qi][:int(q_lens[qi])]
+        rm[n, :int(r_lens[ri])] = r_ids[ri][:int(r_lens[ri])]
+    pid, _, _ = sw_wave_pid(*pair_block(qm, rm, device))
+    for n, (slot, _, _) in enumerate(rows):
+        out[slot] = pid[n]
+    return out

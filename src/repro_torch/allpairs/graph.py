@@ -1,8 +1,7 @@
 """Similarity graph -> protein families (union-find connected components).
 
-Host numpy, as in the reference (``repro/allpairs/graph.py``); the
-forest's persistence (``FamilyForest.save``/``load``, ``ForestMismatch``)
-goes with the index lifecycle (ROADMAP Queue 1 item 9).
+Host numpy, as in the reference (``repro/allpairs/graph.py``), and the
+same forest file, so either package loads the other's.
 
 The scored edges of the all-pairs pipeline form a sparse similarity graph;
 families are its connected components after thresholding (the classic
@@ -10,7 +9,8 @@ single-linkage clustering used by PASTIS-style many-to-many pipelines: an
 edge survives if its alignment is strong enough, and transitive closure
 groups distant relatives through intermediates).
 
-The disjoint-set forest (:class:`FamilyForest`) grows with the corpus
+The disjoint-set forest is **persistent** (:class:`FamilyForest`): it
+lives beside the index manifest, grows with the corpus
 (:meth:`FamilyForest.grow`), and unions each ingest's surviving delta
 edges into the standing components — labels are canonicalized to the
 component's smallest member id, so the incremental forest is EXACTLY the
@@ -29,13 +29,27 @@ plain match recurrence).
 """
 from __future__ import annotations
 
+import os
+import zipfile
 from dataclasses import dataclass
 
 import numpy as np
 
+from ..faults import atomic_write
+
+
+class ForestMismatch(ValueError):
+    """A persisted family forest that does not belong to the index it was
+    loaded for (stale generation, wrong corpus size) or whose own arrays
+    are internally inconsistent. Carries the offending ``file``."""
+
+    def __init__(self, file: str, message: str):
+        super().__init__(message)
+        self.file = file
+
 
 class FamilyForest:
-    """Disjoint-set over a growing corpus.
+    """Persistent disjoint-set over a growing corpus.
 
     Path-halving + union by size, vectorized-ish host loop (edges are few
     after thresholding). ``labels()`` canonicalizes each component to its
@@ -94,6 +108,64 @@ class FamilyForest:
         smallest = np.full(n, n, dtype=np.int64)
         np.minimum.at(smallest, roots, np.arange(n, dtype=np.int64))
         return smallest[roots].astype(np.int32)
+
+    def save(self, path: str | os.PathLike,
+             *, generation: int | None = None) -> None:
+        """Persist the forest (conventionally ``families.npz`` beside the
+        index manifest). ``generation``
+        stamps the index generation the forest was built against, so a
+        later load can refuse a forest that went stale (the index was
+        compacted or recovered without re-clustering). The write is
+        atomic: a crash mid-save leaves the previous forest intact."""
+        gen = -1 if generation is None else int(generation)
+        meta = np.array([self.n, gen], np.int64)
+        atomic_write(path, lambda fh: np.savez_compressed(
+            fh, parent=self.parent, size=self._size, meta=meta))
+
+    @classmethod
+    def load(cls, path: str | os.PathLike, *,
+             expect_n: int | None = None,
+             expect_generation: int | None = None) -> "FamilyForest":
+        """Load a persisted forest, optionally pinned to the index it must
+        belong to. ``expect_n`` is the index's row count and
+        ``expect_generation`` its generation; either mismatch raises
+        :class:`ForestMismatch` naming the file (a stale forest silently
+        mislabeling families is the failure this guards against).
+        Files without metadata skip the generation check."""
+        spath = os.fspath(path)
+        try:
+            z = np.load(spath)
+        except (OSError, EOFError, ValueError, KeyError,
+                zipfile.BadZipFile) as err:
+            raise ForestMismatch(
+                spath, f"family forest {spath} is unreadable (truncated or "
+                f"torn write): {type(err).__name__}: {err}") from err
+        with z:
+            forest = cls(0)
+            forest.parent = np.asarray(z["parent"], np.int64).copy()
+            forest._size = np.asarray(z["size"], np.int64).copy()
+            stored_gen = None
+            if "meta" in z.files:
+                stored_n, stored_gen = (int(v) for v in z["meta"])
+                if stored_n != forest.n:
+                    raise ForestMismatch(
+                        spath, f"family forest {spath} metadata says "
+                        f"{stored_n} nodes but arrays hold {forest.n} — "
+                        f"corrupt or hand-edited file")
+                if stored_gen < 0:
+                    stored_gen = None
+        if expect_n is not None and forest.n != expect_n:
+            raise ForestMismatch(
+                spath, f"family forest {spath} covers {forest.n} nodes but "
+                f"the index holds {expect_n} rows — stale forest (recluster "
+                f"or re-run ingest)")
+        if (expect_generation is not None and stored_gen is not None
+                and stored_gen != expect_generation):
+            raise ForestMismatch(
+                spath, f"family forest {spath} was built at index "
+                f"generation {stored_gen} but the index is at generation "
+                f"{expect_generation} — stale forest (recluster)")
+        return forest
 
 
 def union_find(n: int, edges: np.ndarray) -> np.ndarray:

@@ -15,6 +15,7 @@ import functools
 import numpy as np
 import torch
 
+from ..util import full_float32_matmul
 from .alphabet import ALPHABET_SIZE, BLOSUM62_PADDED
 
 
@@ -49,3 +50,27 @@ def shingle_rows(shingles: torch.Tensor) -> torch.Tensor:
     B = torch.as_tensor(BLOSUM62_PADDED, device=shingles.device)
     r = B[shingles.to(torch.int64)]                  # (..., k, 21) int32
     return r.reshape(*shingles.shape[:-1], -1)
+
+
+def neighbor_scores(shingles: torch.Tensor, k: int) -> torch.Tensor:
+    """Dense neighbour scores (..., W) int32 via the codebook product, on
+    the shingles' device.
+
+    cuBLAS has no int32 GEMM, so the product runs in float32 and is cast
+    back: each output sums at most k nonzero terms of |value| <= 11, so
+    every partial sum is an integer far below 2^24 and float32 is exact.
+    TF32 would be exact too (its 10-bit mantissa holds the operands, and
+    it accumulates in float32), but the precision is pinned to full
+    float32 for the call so that no caller's setting is relied on.
+    """
+    rows = shingle_rows(shingles).to(torch.float32)   # (..., k*(A+1))
+    C = torch.as_tensor(codebook_onehot(k), device=shingles.device)
+    with full_float32_matmul():
+        s = rows @ C.T.to(torch.float32)                # (..., W)
+    return s.to(torch.int32)
+
+
+def neighbor_weights(shingles: torch.Tensor, k: int, T: int) -> torch.Tensor:
+    """Thresholded feature weights: score if score >= T else 0 (paper §3.1)."""
+    s = neighbor_scores(shingles, k)
+    return torch.where(s >= T, s, 0)

@@ -22,7 +22,7 @@ import functools
 import numpy as np
 import torch
 
-from ..util import as_unsigned
+from ..util import as_unsigned, full_float32_matmul
 from .alphabet import ALPHABET_SIZE, AMINO_ACIDS, BLOSUM62_PADDED
 from .neighbors import codebook, codebook_onehot, shingle_rows
 from .shingle import extract_shingles, shingle_ids
@@ -99,6 +99,9 @@ def unpack_bits(packed: torch.Tensor, f: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------- tables
+TABLE_BLOCK = 4096   # parent words per block of the per-word tables
+
+
 @functools.lru_cache(maxsize=8)
 def contribution_table(k: int, T: int, f: int, scheme: str = "java") -> np.ndarray:
     """C[p] = Σ_w [score(p,w) >= T]·score(p,w)·H[w] — (W, f) int32.
@@ -111,7 +114,7 @@ def contribution_table(k: int, T: int, f: int, scheme: str = "java") -> np.ndarr
     H = hyperplanes(k, f, scheme).astype(np.int32)
     W_total = cb.shape[0]
     out = np.zeros((W_total, f), dtype=np.int32)
-    blk = 4096
+    blk = TABLE_BLOCK
     rows_f = rows.astype(np.float32)
     cb_f = cb_oh.T.astype(np.float32)
     H_f = H.astype(np.float32)
@@ -130,10 +133,44 @@ def feature_count_table(k: int, T: int) -> np.ndarray:
     rows = BLOSUM62_PADDED[cb].reshape(cb.shape[0], -1).astype(np.float32)
     W = cb.shape[0]
     out = np.zeros((W,), np.int32)
-    blk = 4096
+    blk = TABLE_BLOCK
     for i in range(0, W, blk):
         scores = rows[i:i + blk] @ cb_oh.T
         out[i:i + blk] = (scores >= T).sum(axis=1)
+    return out
+
+
+def table_rows(kind: str, k: int, T: int, f: int, scheme: str,
+               device: torch.device, lo: int = 0,
+               hi: int | None = None) -> torch.Tensor:
+    """Rows ``lo:hi`` of a per-word table built on ``device`` with torch:
+    ``kind="contrib"`` gives :func:`contribution_table`'s (hi - lo, f)
+    int32 rows, ``kind="count"`` :func:`feature_count_table`'s (hi - lo,)
+    int32 counts. The same float32 products in the same 4,096-word blocks
+    (from ``lo``) as the numpy tables, and as exact: scores are sums of
+    k BLOSUM62 entries, and |V| <= 44 * 20^4 < 2^24 for k <= 4, so every
+    partial sum is an integer float32 holds."""
+    W = ALPHABET_SIZE**k
+    hi = W if hi is None else hi
+    cb = codebook(k).astype(np.int64)
+    rows = torch.as_tensor(BLOSUM62_PADDED[cb[lo:hi]].reshape(hi - lo, -1),
+                           dtype=torch.float32, device=device)
+    cbT = torch.as_tensor(codebook_onehot(k), device=device).T.to(
+        torch.float32)
+    if kind == "contrib":
+        H = torch.as_tensor(hyperplanes(k, f, scheme), device=device).to(
+            torch.float32)
+        out = torch.empty((hi - lo, f), dtype=torch.int32, device=device)
+    else:
+        out = torch.empty((hi - lo,), dtype=torch.int32, device=device)
+    with full_float32_matmul():
+        for i in range(0, hi - lo, TABLE_BLOCK):
+            scores = rows[i:i + TABLE_BLOCK] @ cbT
+            if kind == "contrib":
+                wts = torch.where(scores >= T, scores, 0.0)
+                out[i:i + TABLE_BLOCK] = (wts @ H).to(torch.int32)
+            else:
+                out[i:i + TABLE_BLOCK] = (scores >= T).sum(dim=1)
     return out
 
 
@@ -141,11 +178,17 @@ def feature_count_table(k: int, T: int) -> np.ndarray:
 def _device_table(kind: str, k: int, T: int, f: int, scheme: str,
                   device: torch.device) -> torch.Tensor:
     """A per-word table on ``device`` with one extra zero row at index W,
-    where invalid shingles (id -1) are sent — one gather, no mask pass."""
-    t = (contribution_table(k, T, f, scheme) if kind == "contrib"
-         else feature_count_table(k, T))
-    t = np.concatenate([t, np.zeros((1,) + t.shape[1:], t.dtype)])
-    return torch.as_tensor(t, device=device)
+    where invalid shingles (id -1) are sent — one gather, no mask pass.
+    The CPU's comes from the numpy functions; any other device builds its
+    own (:func:`table_rows`: a k=4 table is ~6 TFLOP, a minute and more
+    of host time but well under a second on the card)."""
+    if device.type == "cpu":
+        t = torch.from_numpy(contribution_table(k, T, f, scheme)
+                             if kind == "contrib"
+                             else feature_count_table(k, T))
+    else:
+        t = table_rows(kind, k, T, f, scheme, device)
+    return torch.cat([t, t.new_zeros((1,) + t.shape[1:])])
 
 
 @functools.lru_cache(maxsize=8)

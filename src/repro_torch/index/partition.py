@@ -115,6 +115,18 @@ class BucketPartition:
                 ids_s[s, b, :e] = ids
         return keys_s, offs_s, ids_s
 
+    @property
+    def n_buckets(self) -> np.ndarray:
+        """(S,) bucket count owned by each shard (load-balance diagnostic)."""
+        return np.array([sum(len(k) for k, _, _ in per)
+                         for per in self.shards], np.int64)
+
+    @property
+    def n_entries(self) -> np.ndarray:
+        """(S,) bucket-entry count owned by each shard."""
+        return np.array([sum(len(i) for _, _, i in per)
+                         for per in self.shards], np.int64)
+
     def host_slabs(self):
         """The stacked numpy slabs (keys, offsets, ids)."""
         return self._stacked

@@ -17,28 +17,44 @@ The port of ``repro/index/store.py``:
 
 Growth is append-only: ``add()`` seals a new segment, the merged bucket
 table is a stable linear merge materialized lazily, ``compact()`` folds
-the segments into one. Save/load and crash recovery are not ported yet.
+the segments into one.
+
+Persistence is fingerprint-versioned, in the reference's two containers
+and formats, so an index saved by either package loads in the other: a
+**segment directory** (manifest + per-segment npz, appends cost O(delta),
+``recover=True`` serves the longest valid prefix) or the legacy
+monolithic ``.npz`` (paths ending in ``.npz``). Loading against a
+different :class:`~repro_torch.core.pipeline.LSHConfig` raises
+:class:`IndexConfigMismatch`.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
+import os
+import zipfile
 
 import numpy as np
 import torch
 
 from ..core.join import band_keys
 from ..core.pipeline import LSHConfig, ScalLoPS
+from ..faults import atomic_write
 from ..obs import span
 from ..util import as_unsigned, i32_to_u32, resolve_device, u32_to_i32
 from . import segments as seglib
-from .segments import Segment
+from .segments import CorruptSegment, Segment
 
 FORMAT_VERSION = 1
 
 # Fields of LSHConfig that determine signature/bucket semantics; serving
 # knobs (max_pairs, join_method) do not invalidate an index.
 _FINGERPRINT_FIELDS = ("k", "T", "f", "d", "scheme", "siggen_method")
+
+
+class IndexConfigMismatch(RuntimeError):
+    """A persisted index was loaded against an incompatible LSHConfig."""
 
 
 def config_fingerprint(cfg: LSHConfig, *, layout: str, bands: int,
@@ -71,8 +87,9 @@ def _job1(sl: ScalLoPS, ref_ids, ref_lens):
 class SignatureIndex:
     """Segmented reference index over packed LSH signatures.
 
-    Use :meth:`build` (from sequences); query via :meth:`probe` or the
-    serving layer (:mod:`repro_torch.index.service`); grow via :meth:`add`.
+    Use :meth:`build` (from sequences) or :meth:`load` (from disk);
+    query via :meth:`probe` or the serving layer
+    (:mod:`repro_torch.index.service`); grow via :meth:`add`.
     """
 
     def __init__(self, cfg: LSHConfig, sigs: np.ndarray, valid: np.ndarray,
@@ -109,6 +126,7 @@ class SignatureIndex:
         self.generation = 0
         self._merged_stale = True
         self._csr_np = None
+        self.recovery = None    # load(recover=True)'s report of a dropped tail
         self._partitions = {}
         self._dev_sigs = None
         self._dev_valid = None
@@ -128,6 +146,12 @@ class SignatureIndex:
     def epoch(self) -> int:
         """Segment count (sealed + pending)."""
         return len(self.segments) + len(self._pending)
+
+    @property
+    def lifecycle(self) -> tuple[int, int]:
+        """(generation, epoch) — changes iff a delta refresh or a full
+        re-place is due."""
+        return (self.generation, self.epoch)
 
     @property
     def fingerprint(self) -> str:
@@ -290,3 +314,135 @@ class SignatureIndex:
                     torch.zeros((), dtype=torch.bool, device=self.device))
         cand, sizes = _probe_csr_fused(qk, keys_s, offs_s, ids_s, cap=cap)
         return cand, torch.amax(sizes) > cap
+
+    # ------------------------------------------------------------ persistence
+    def _meta(self) -> dict:
+        return {
+            "format": FORMAT_VERSION,
+            "fingerprint": self.fingerprint,
+            "cfg": dataclasses.asdict(self.cfg),
+            "layout": self.layout,
+            "bands": self.bands,
+            "interleave": self.interleave,
+            "key_hash": self.key_hash,
+            "n_shards": self.n_shards,
+            "n_refs": self.size,
+        }
+
+    def save(self, path: str | os.PathLike) -> int:
+        """Persist the index; returns the number of segment files written.
+
+        Paths ending in ``.npz`` write the legacy monolithic container
+        (merged table, one file). Any other path is a segment directory:
+        manifest + per-segment files, and repeated saves append only the
+        segments not on disk yet (O(delta)).
+        """
+        if not seglib.is_segmented(path):
+            self._ensure_built()
+            payload = {
+                "meta_json": np.frombuffer(
+                    json.dumps(self._meta(), sort_keys=True).encode(),
+                    dtype=np.uint8),
+                **seglib.stored_arrays(self.sigs, self.valid, self._csr_np),
+            }
+            atomic_write(os.fspath(path),
+                         lambda fh: np.savez_compressed(fh, **payload))
+            return 1
+        self.seal()                 # segments only — no merge needed
+        return seglib.save_segmented(path, self._meta(), self.segments,
+                                     self.n_bands)
+
+    @classmethod
+    def _check_meta(cls, meta: dict, expected_cfg: LSHConfig | None):
+        """Fingerprint verification shared by both containers; returns the
+        config and the constructor's keyword arguments."""
+        cfg = LSHConfig(**meta["cfg"])
+        layout, bands = meta["layout"], int(meta["bands"])
+        interleave = bool(meta.get("interleave", True))
+        # indexes saved before band keys were hashed bucket on raw keys
+        key_hash = meta.get("key_hash", "none")
+        # indexes saved before sharding are 1-way partitions
+        n_shards = int(meta.get("n_shards", 1))
+        stored = meta["fingerprint"]
+        recomputed = config_fingerprint(cfg, layout=layout, bands=bands,
+                                        interleave=interleave,
+                                        key_hash=key_hash,
+                                        n_shards=n_shards)
+        if stored != recomputed:
+            raise IndexConfigMismatch(
+                f"fingerprint {stored} does not match stored config "
+                f"(expected {recomputed}) — corrupt or stale index")
+        if expected_cfg is not None:
+            want = config_fingerprint(expected_cfg, layout=layout,
+                                      bands=bands, interleave=interleave,
+                                      key_hash=key_hash,
+                                      n_shards=n_shards)
+            if want != stored:
+                raise IndexConfigMismatch(
+                    f"index fingerprint {stored} != {want} for the "
+                    f"requested config; rebuild the index")
+        return cfg, dict(layout=layout, bands=bands, interleave=interleave,
+                         key_hash=key_hash, n_shards=n_shards)
+
+    @classmethod
+    def load(cls, path: str | os.PathLike,
+             expected_cfg: LSHConfig | None = None, *,
+             recover: bool = False, device=None) -> "SignatureIndex":
+        """Load a persisted index (either package's, either container) onto
+        ``device`` — the card unless another is named; fails loudly on a
+        config mismatch.
+
+        Segment directories load their manifest + segment files; ``.npz``
+        paths load the monolithic container as one sealed segment (indexes
+        saved before key hashing or sharding load with those defaults).
+        With ``expected_cfg``, its fingerprint must match the stored one,
+        else :class:`IndexConfigMismatch`. A damaged segment file raises
+        :class:`~repro_torch.index.segments.CorruptSegment` naming the
+        file; with ``recover=True`` the damaged tail is quarantined and
+        the longest valid prefix served, the drop report on
+        ``idx.recovery``.
+        """
+        dev = resolve_device(device)
+        if seglib.is_segmented(path) and os.path.exists(
+                seglib.manifest_path(path)):
+            meta, segments, recovery = seglib.load_segmented(
+                path, recover=recover)
+            if meta.get("format") != FORMAT_VERSION:
+                raise IndexConfigMismatch(
+                    f"index format {meta.get('format')} != {FORMAT_VERSION}")
+            cfg, kw = cls._check_meta(meta, expected_cfg)
+            if segments:
+                sigs = np.concatenate([s.sigs for s in segments], axis=0)
+                valid = np.concatenate([s.valid for s in segments], axis=0)
+            else:
+                sigs = np.zeros((0, cfg.f // 32), np.uint32)
+                valid = np.zeros((0,), bool)
+            idx = cls(cfg, sigs, valid, device=dev, **kw)
+            idx._pending = []
+            idx.segments = segments
+            idx.recovery = recovery
+            return idx
+        try:
+            z = np.load(path)
+        except (OSError, EOFError, ValueError,
+                zipfile.BadZipFile) as err:
+            # the monolithic container has no prefix to fall back to
+            raise CorruptSegment(
+                os.fspath(path),
+                f"legacy index {path} is unreadable (truncated or torn "
+                f"write): {type(err).__name__}: {err}") from err
+        with z:
+            meta = json.loads(bytes(z["meta_json"].tobytes()).decode())
+            if meta.get("format") != FORMAT_VERSION:
+                raise IndexConfigMismatch(
+                    f"index format {meta.get('format')} != {FORMAT_VERSION}")
+            cfg, kw = cls._check_meta(meta, expected_cfg)
+            idx = cls(cfg, z["sigs"], z["valid"], device=dev, **kw)
+            csr = [(z[f"band{b}_keys"], z[f"band{b}_offsets"],
+                    z[f"band{b}_ids"]) for b in range(idx.n_bands)]
+        # the monolithic table is one sealed segment (global ids, base 0)
+        idx._pending = []
+        idx.segments = [Segment(0, idx.sigs, idx.valid, csr)]
+        idx._csr_np = csr
+        idx._merged_stale = False
+        return idx

@@ -132,6 +132,9 @@ class CounterFamily(_Family):
     def __init__(self, name, help="", labelnames=()):
         super().__init__(name, help, labelnames, Counter)
 
+    def inc(self, by: int = 1, **labels) -> None:
+        self.labels(**labels).inc(by)
+
 
 class Registry:
     """Named instrument collection. ``counter``/``histogram`` are

@@ -1,6 +1,9 @@
-"""Small shared helpers: power-of-two quantization, device resolution and
-the uint32 <-> int32 bit-pattern conversions."""
+"""Small shared helpers: power-of-two quantization, device resolution,
+full-precision float32 products and the uint32 <-> int32 bit-pattern
+conversions."""
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -22,6 +25,19 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "plain torch path on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def full_float32_matmul():
+    """Run float32 products at full float32 precision (no TF32 or bf16
+    passes), whatever the caller set, and restore its setting after. The
+    port's integer products that run in float32 rely on it."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
 
 
 def u32_to_i32(a) -> torch.Tensor:

@@ -568,3 +568,122 @@ def test_upper_pairs_kernel_myva_shape_on_card(cuda_device):
     want = ref.upper_pairs_ref(o, i, cap=1 << 22)
     assert torch.equal(got, want)
     assert int((want[:, :, 0] >= 0).sum()) > 1 << 20
+
+
+# ------------------------------------------------------------ quality path
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 3, 4])
+def test_neighbor_scores_card_equals_cpu(cuda_device, k):
+    from repro_torch.core.neighbors import neighbor_scores, neighbor_weights
+    rng = np.random.default_rng(k)
+    sh = torch.from_numpy(rng.integers(0, 21, (4, 37, k)).astype(np.int8))
+    got = neighbor_scores(sh.to(cuda_device), k)
+    assert got.dtype == torch.int32 and got.is_cuda
+    assert torch.equal(got.cpu(), neighbor_scores(sh, k))
+    assert torch.equal(neighbor_weights(sh.to(cuda_device), k, 13).cpu(),
+                       neighbor_weights(sh, k, 13))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,T,f,scheme", [(2, 8, 32, "java"),
+                                          (3, 13, 32, "java"),
+                                          (3, 11, 64, "splitmix")])
+def test_device_tables_equal_host_tables(cuda_device, k, T, f, scheme):
+    from repro_torch.core.simhash import (contribution_table,
+                                          feature_count_table, table_rows)
+    np.testing.assert_array_equal(
+        table_rows("contrib", k, T, f, scheme, cuda_device).cpu().numpy(),
+        contribution_table(k, T, f, scheme))
+    np.testing.assert_array_equal(
+        table_rows("count", k, T, 0, scheme, cuda_device).cpu().numpy(),
+        feature_count_table(k, T))
+
+
+@pytest.mark.cuda
+def test_siggen_kernel_at_quality_config_on_card(cuda_device):
+    """K1 at the paper's best-quality point (k=4, D = 84, all 160,000
+    words, f = 32, T = 22) against its twin, and the matmul path's
+    signatures against the table path's (tables built on the card)."""
+    from repro_torch.core.simhash import signatures
+    rows, cb, H = _siggen_inputs(3000, 4, 32, 5)
+    t = [a.to(cuda_device) for a in (rows, cb, H)]
+    ops.reset_launches()
+    got = ops.signatures_fused(*t, T=22)
+    assert ops.LAUNCHES["siggen_accumulate"] == 1
+    assert torch.equal(got, ref.siggen_accumulate_ref(*t, 22, block=1024))
+    rng = np.random.default_rng(6)
+    ids = torch.from_numpy(rng.integers(0, 20, (40, 300)).astype(np.int8))
+    lens = torch.from_numpy(rng.integers(3, 301, 40).astype(np.int32))
+    ids[torch.arange(300)[None, :] >= lens[:, None]] = PAD
+    ids, lens = ids.to(cuda_device), lens.to(cuda_device)
+    kw = dict(k=4, T=22, f=32, scheme="java")
+    assert torch.equal(signatures(ids, lens, method="matmul", **kw),
+                       signatures(ids, lens, method="table", **kw))
+
+
+@pytest.mark.cuda
+def test_alignment_api_card_equals_cpu(cuda_device):
+    from repro_torch.align import (SeedExtendBaseline,
+                                   batch_percent_identity, percent_identity,
+                                   sw_align_batch, sw_scores_device,
+                                   sw_wave_affine, sw_wave_linear)
+    from repro_torch.data.synthetic import (SyntheticProteinConfig,
+                                            make_protein_sets)
+    qs, rs = _pairs(37, 300, 420, 8)
+    ops.reset_launches()
+    got = sw_align_batch(qs, rs, device=cuda_device)
+    assert ops.LAUNCHES["sw_rowwave"] == 1
+    np.testing.assert_array_equal(got, sw_align_batch(qs, rs, device="cpu"))
+    assert sw_scores_device(qs, rs, device=cuda_device).is_cuda
+    for fn in (sw_wave_linear, sw_wave_affine):
+        assert torch.equal(fn(qs, rs, device=cuda_device).cpu(),
+                           fn(qs, rs, device="cpu"))
+    np.testing.assert_array_equal(
+        got, sw_wave_linear(qs, rs, device=cuda_device).cpu().numpy())
+    assert percent_identity(qs[3], rs[3], device=cuda_device) == \
+        percent_identity(qs[3], rs[3], device="cpu")
+    data = make_protein_sets(SyntheticProteinConfig(
+        n_refs=40, n_homolog_queries=8, n_decoy_queries=8,
+        ref_len_mean=80, ref_len_std=20, seed=3))
+    refs = (data["ref_ids"], data["ref_lens"])
+    queries = (data["query_ids"], data["query_lens"])
+    pairs = np.stack([np.arange(16) % 16, np.arange(16) * 2,
+                      np.zeros(16)], axis=1).astype(np.int32)
+    pairs[5] = -1
+    a = batch_percent_identity(pairs, *queries, *refs, device=cuda_device)
+    b = batch_percent_identity(pairs, *queries, *refs, device="cpu")
+    np.testing.assert_array_equal(a, b)
+    hits = [SeedExtendBaseline(k=3, T=11, s_min=35, device=d).build_index(
+        *refs).search(*queries) for d in (cuda_device, "cpu")]
+    assert hits[0] == hits[1] and hits[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("container", ["dir", "npz"])
+def test_loaded_index_on_card_serves_what_cpu_load_serves(cuda_device,
+                                                          tmp_path,
+                                                          container):
+    from repro_torch.core.pipeline import LSHConfig, ScalLoPS
+    from repro_torch.data.synthetic import (SyntheticProteinConfig,
+                                            make_protein_sets)
+    from repro_torch.index.service import topk_dense, topk_probe
+    from repro_torch.index.store import SignatureIndex
+    data = make_protein_sets(SyntheticProteinConfig(
+        n_refs=300, n_homolog_queries=16, n_decoy_queries=16,
+        ref_len_mean=120, ref_len_std=30, seed=4))
+    cfg = LSHConfig(k=3, T=13, f=64, d=2, scheme="splitmix")
+    idx = SignatureIndex.build(cfg, data["ref_ids"][:200],
+                               data["ref_lens"][:200], device=cuda_device)
+    idx.add(data["ref_ids"][200:], data["ref_lens"][200:])
+    path = tmp_path / ("idx" if container == "dir" else "idx.npz")
+    idx.save(path)
+    q = ScalLoPS(cfg, device="cpu").signatures(data["query_ids"],
+                                               data["query_lens"])
+    on = [SignatureIndex.load(path, cfg, device=d)
+          for d in (cuda_device, "cpu")]
+    assert on[0].device.type == "cuda"
+    for fn in (lambda i: topk_probe(i, q, k=10, cap=64)[:2],
+               lambda i: topk_dense(i, q, k=10)):
+        a, b = fn(on[0]), fn(on[1])
+        for x, y in zip(a, b):
+            assert torch.equal(x.cpu(), y)

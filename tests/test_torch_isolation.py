@@ -25,7 +25,7 @@ def _port_modules():
 
 def test_port_modules_import_without_jax():
     mods = _port_modules()
-    assert "repro_torch.index.service" in mods and len(mods) >= 25
+    assert "repro_torch.index.service" in mods and len(mods) >= 44
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules\n"
@@ -72,6 +72,32 @@ def test_default_device_raises_without_a_card():
         SignatureIndex.build(LSHConfig(), np.zeros((1, 8), np.int8),
                              np.array([8]))
     assert ScalLoPS(LSHConfig(), device="cpu").device.type == "cpu"
+
+
+def test_new_entry_points_default_to_the_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from repro_torch.align import (SeedExtendBaseline,
+                                   batch_percent_identity, percent_identity,
+                                   sw_align_batch, sw_score, sw_scores_device,
+                                   sw_wave_affine, sw_wave_linear)
+    from repro_torch.core.pipeline import LSHConfig
+    from repro_torch.index.store import SignatureIndex
+    q = np.zeros((1, 8), np.int8)
+    for fn in (sw_align_batch, sw_scores_device, sw_score, percent_identity,
+               sw_wave_linear, sw_wave_affine):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn(q, q)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        batch_percent_identity(np.zeros((1, 3), np.int32), q, [8], q, [8])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SeedExtendBaseline().build_index(q, np.array([8]))
+    path = tmp_path / "idx.npz"
+    SignatureIndex(LSHConfig(), np.zeros((0, 1), np.uint32),
+                   np.zeros(0, bool), device="cpu").save(path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SignatureIndex.load(path)
+    assert SignatureIndex.load(path, device="cpu").device.type == "cpu"
 
 
 def test_chip_smoke_alone_fails_and_reports_nothing(tmp_path):
