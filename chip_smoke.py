@@ -27,7 +27,32 @@ Phases, any failure exits non-zero:
               d=2, the paper's own ``perf_config()`` (java hash, d=0, flip;
               a query prefix if its pairs do not fit), and the flip-layout
               index serving phase 2's queries.
-4. persist  — index persistence on the index of phase 2 (454,401 refs):
+4. shard    — ``ShardedIndex`` over the index of phase 2 with 1, 2 and 4
+              shards on the card: the ring's top-k, final cap and
+              truncated flag equal ``topk_probe``'s for all 256 queries
+              (once from cap=1, so grow-and-retry fires), each 64-query
+              batch timed beside the unsharded probe's;
+              ``QueryEngine(sharded=)`` with the linear and affine re-rank
+              (K3) and the row wave (K7) equals the unsharded engine; on an
+              index of its own over
+              the same signatures, the 4,096 refs (seed 1) that phase 7
+              adds are ingested by a delta ``refresh()``, after which the
+              ring equals a ``ShardedIndex`` over an index built from all
+              458,497 refs, and ``compact()`` leaves it identical.
+5. fleet    — ``ReplicaFleet`` (2 replicas of 2 shards, SW re-rank)
+              behind ``AsyncEngine`` takes 1,024 single-query futures with
+              1,024 refs (seed 2) ingested mid-stream and the serving CLI's
+              chaos script installed (raise at the 2nd and 5th replica
+              call, latency at the 6th): 2 router retries, 0 degraded, and
+              every result equals an engine over the index at the epoch it
+              reports; queries/s and p50/p95 submit-to-result logged.
+6. cli      — ``python -m repro_torch.launch.search_serve`` in a
+              subprocess on the card: 454,401 refs, 4 shards, re-rank, a
+              FASTA of 1,024 refs appended, compaction identical, and the
+              ``--metrics-out`` and ``--trace-out`` files parsed; then
+              ``--replicas 2 --chaos`` (65,536 refs, 2 shards, the same
+              FASTA ingested live): 2 retries, 0 degraded.
+7. persist  — index persistence on the index of phase 2 (454,401 refs):
               saved as a segment directory, grown by 4,096 refs and saved
               again (exactly one segment file written), loaded onto the
               card with its config: signatures, validity and CSR equal to
@@ -40,10 +65,10 @@ Phases, any failure exits non-zero:
               ``CorruptSegment`` naming the file, and ``recover=True``
               serves the valid prefix (phase 2's top-k exactly) and
               reports what it dropped; occupancy statistics logged.
-5. siggen   — the index of NC_000913 scale (4,146 refs, mean length 316)
+8. siggen   — the index of NC_000913 scale (4,146 refs, mean length 316)
               built with ``siggen_method="matmul"`` (kernel K1) must carry
               the same signatures as the table path.
-6. quality  — the paper's §5.2 evaluation at NC_000913 scale with
+9. quality  — the paper's §5.2 evaluation at NC_000913 scale with
               ``quality_config()`` (k=4, T=22, java, d=0, flip), 512
               homolog queries (sub_rates 0.03, 0.10, 0.20) and 512 decoys:
               the table path (k=4 tables built on the card) and the matmul
@@ -59,7 +84,7 @@ Phases, any failure exits non-zero:
               256 refs and 64 queries (pairs, PIDs, baseline hits; both
               sides search the card's signatures: the k=4 tables take
               minutes to build on the host).
-7. allpairs — the all-vs-all path at myva scale (192,987 sequences, mean
+10. allpairs — the all-vs-all path at myva scale (192,987 sequences, mean
               length 305, planted families of 4): ``all_pairs_search``
               on the card (join through K5, ungapped prefilter K4,
               Smith-Waterman K3), timed by stage; the card's join must
@@ -68,10 +93,10 @@ Phases, any failure exits non-zero:
               give the wavefront's scores; and ``all_pairs_ingest`` of the
               last 4,096 rows onto a run over the rest must give the full
               run's family labels.
-8. joins    — the self-join's two routes (keyed dup-free and sort-dedup)
+11. joins   — the self-join's two routes (keyed dup-free and sort-dedup)
               on the first 40,000 myva rows, where both apply: the same
               pairs, each route timed.
-9. kernels  — every kernel held exactly against its plain torch twin and
+12. kernels — every kernel held exactly against its plain torch twin and
               timed on the card alone (its launches captured in one CUDA
               graph): on the inputs the main paths gave it first, and K4
               and K7 on one full wave of their most used shape; K2 and K6
@@ -84,14 +109,14 @@ Phases, any failure exits non-zero:
               it (PAD slots included). Each logs its kernel share of its
               stage (K7: the row-wave step): launches x the real-fill
               wave's ms over the stage's wall clock. K1's first launch
-              at k=4 (phase 6) has a row of its own,
+              at k=4 (phase 9) has a row of its own,
               ``siggen_accumulate_k4``.
-10. small   — a 2,000-ref index served, and a 2,000-sequence corpus
+13. small   — a 2,000-ref index served, and a 2,000-sequence corpus
               clustered by ``all_pairs_search`` (the kernel route above,
               and the default PID route), ``ScalLoPS.search`` with each
               join and a flip index's ``topk_probe``, on the card and on
               the CPU (the twins): identical outputs.
-11. wide    — widths and lengths past the kernels' old limits: f = 512
+14. wide    — widths and lengths past the kernels' old limits: f = 512
               (16 words) at NC_000913 scale through K1 (``siggen_method=
               "matmul"``, a grid per 256-column slice), the dense
               top-k (K2) and the dense join at d=1 (K6, then K2), card ==
@@ -107,14 +132,17 @@ Phases, any failure exits non-zero:
 
 Each path is driven with every launch count set to 0 just before it and
 read just after it: serving (phase 2), each join's ``search_pairs``
-(phase 3; the dense join's is K6's path), the whole of phase 4, the K1
-build (phase 5), phase 6's matmul build (K1 at k=4) and its scoring (K7,
-K3), and in phase 7 the timed ``all_pairs_search`` (the all-pairs main
-path), the row wave over the survivors (K7's path), the base run and the
-ingest, each on its own, and in phase 11 each wide or long path. K2's row
-also times the dense join's first emission tile. The kernel wrappers
-record their first inputs throughout phases 2-7, phase 6 into a record of
-its own. The build logs ptxas's registers and spills of every sw.cu
+(phase 3; the dense join's is K6's path), the whole of phase 4 and of
+phase 5 (K3, and K7 in phase 4, in the re-rank: the serving tier's
+paths), the whole of
+phase 7, the K1 build (phase 8), phase 9's matmul build (K1 at k=4) and
+its scoring (K7, K3), and in phase 10 the timed ``all_pairs_search`` (the
+all-pairs main path), the row wave over the survivors (K7's path), the
+base run and the ingest, each on its own, and in phase 14 each wide or
+long path. Phase 6's launches happen in its CLI processes and are not
+counted. K2's row also times the dense join's first emission tile. The
+kernel wrappers record their first inputs throughout phases 2-10, phases
+4-5 and 9 each into a record of their own. The build logs ptxas's registers and spills of every sw.cu
 and siggen.cu kernel. The output ends with the card's ``nvidia-smi`` name
 and power limit, one JSON line of kernels, and the ``ok`` line. Needs one CUDA
 card; imports nothing of JAX.
@@ -122,6 +150,7 @@ card; imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -169,6 +198,12 @@ QUALITY_QUERIES = (512, 512)   # [quality]: homolog and decoy queries
 PID_PAIRS = 4_096       # [quality]: emitted pairs aligned for PID, at most
 SEED_EXTEND_S = 45.0    # [quality]: seconds of seed-and-extend search
 QUALITY_CPU = (256, 64)  # [quality]: refs and queries of card == CPU
+SHARD_COUNTS = (1, 2, 4)   # [shard]: shard counts of the ring, one card
+SHARD_PASSES = 10       # [shard]: timed passes over the 256 queries
+FLEET_QUERIES = 1_024   # [fleet]: single-query futures (4 x the 256)
+FLEET_INGEST = 1_024    # [fleet]: refs ingested mid-stream (seed 2)
+CLI_ADD = 1_024         # [cli]: refs of the FASTA --add-fasta appends
+CLI_CHAOS_REFS = 65_536  # [cli]: refs of the --replicas 2 --chaos run
 
 
 def _dataset(name: str) -> dict:
@@ -807,6 +842,322 @@ def phase_persist(torch, ops, dev, index, serve_data, serve_probe, log):
     log(f"[persist] phase wall clock {wall:.1f} s")
     return dict(save_s=save_s, delta_save_s=delta_s, load_s=load_s,
                 wall_s=wall)
+
+
+def _sharded_ms(torch, fn, q, batch, passes):
+    """Per-batch wall ms of ``fn(q[i:i + batch])`` (results come back to
+    the host inside the timing), ``passes`` times over ``q``."""
+    fn(q[:batch])
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(passes):
+        for i in range(0, q.shape[0], batch):
+            t0 = time.perf_counter()
+            fn(q[i:i + batch])
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return np.asarray(ms)
+
+
+def _same_topk(got, want, what):
+    """(ids, dists, cap, truncated) of a ring == ``topk_probe``'s."""
+    ids, dists = (x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+                  for x in want[:2])
+    if not (np.array_equal(got[0], ids) and np.array_equal(got[1], dists)
+            and (got[2], bool(got[3])) == (want[2], bool(want[3]))):
+        raise AssertionError(f"{what}: the ring's top-k (cap {got[2]}, "
+                             f"truncated {got[3]}) differs from topk_probe's "
+                             f"(cap {want[2]}, truncated {want[3]})")
+
+
+def _fresh_index(index, dev):
+    """An index of its own over ``index``'s signatures (one segment, its
+    buckets built anew), to grow without touching ``index``."""
+    from repro_torch.index import SignatureIndex
+    return SignatureIndex(index.cfg, index.sigs, index.valid,
+                          layout=index.layout, device=dev)
+
+
+def phase_shard(torch, ops, dev, index, serve_data, log):
+    """``ShardedIndex`` on the Swiss-Prot index of phase 2 (untouched: the
+    refresh grows an index of its own over the same signatures)."""
+    from repro_torch.data.synthetic import (SyntheticProteinConfig,
+                                            make_protein_sets)
+    from repro_torch.index import (QueryEngine, ServingConfig, ShardedIndex,
+                                   SignatureIndex, topk_probe)
+
+    t_phase = time.perf_counter()
+    qi, ql = serve_data["query_ids"], serve_data["query_lens"]
+    refs = (serve_data["ref_ids"], serve_data["ref_lens"])
+    q = index._pipeline.signatures(qi, ql)
+    batch, k = 64, 10
+    out = {}
+
+    # the cap an engine settles on (it keeps what grow-and-retry reached):
+    # every timed batch starts there, as a warmed engine's probe does
+    cap = max(topk_probe(index, q[i:i + batch], k=k, cap=32)[2]
+              for i in range(0, q.shape[0], batch))
+
+    def probe(x):
+        r = topk_probe(index, x, k=k, cap=cap)
+        return r[0].cpu().numpy(), r[1].cpu().numpy(), r[2], r[3]
+
+    ms = _sharded_ms(torch, probe, q, batch, SHARD_PASSES)
+    out["unsharded"] = ms
+    for n in SHARD_COUNTS:
+        sh = ShardedIndex(index, [dev] * n)
+        for i in range(0, q.shape[0], batch):
+            _same_topk(sh.topk(q[i:i + batch], k=k, cap=32),
+                       topk_probe(index, q[i:i + batch], k=k, cap=32),
+                       f"n_shards={n}, batch {i // batch}")
+        got = sh.topk(q[:batch], k=k, cap=1)
+        _same_topk(got, topk_probe(index, q[:batch], k=k, cap=1),
+                   f"n_shards={n} from cap=1")
+        out[n] = _sharded_ms(torch, lambda x: sh.topk(x, k=k, cap=cap), q,
+                             batch, SHARD_PASSES)
+        log(f"[shard] n_shards={n} on {dev}: ring top-k == topk_probe for "
+            f"all {q.shape[0]} queries (ids, dists, cap, truncated; from "
+            f"cap=1 the ring grew to {got[2]}); per-{batch}-query batch wall "
+            f"ms at the settled cap {cap}: p50 "
+            f"{np.percentile(out[n], 50):.4f}, p95 "
+            f"{np.percentile(out[n], 95):.4f} over {len(out[n])} batches")
+    log(f"[shard] unsharded topk_probe, same batches and cap: p50 "
+        f"{np.percentile(ms, 50):.4f}, p95 {np.percentile(ms, 95):.4f} ms")
+    for gap_mode, dp_kernel in (("linear", "wavefront"),
+                                ("affine", "wavefront"),
+                                ("linear", "rowwave")):
+        cfg = ServingConfig(k=k, max_batch=batch, rerank=True, mode="probe",
+                            gap_mode=gap_mode, dp_kernel=dp_kernel)
+        a = QueryEngine(index, cfg, ref_seqs=refs).query_batch(qi, ql)
+        b = QueryEngine(index, cfg, ref_seqs=refs, sharded=ShardedIndex(
+            index, [dev] * 4)).query_batch(qi, ql)
+        if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])):
+            raise AssertionError(f"QueryEngine(sharded=) with the {gap_mode} "
+                                 f"{dp_kernel} re-rank differs from the "
+                                 f"unsharded engine")
+    log(f"[shard] QueryEngine(sharded=4 shards, rerank=True) == the "
+        f"unsharded engine, {len(ql)} queries, with the linear and affine "
+        f"wavefront re-rank (K3) and the linear row wave (K7)")
+
+    sp = _dataset("swissprot")
+    new = make_protein_sets(SyntheticProteinConfig(
+        n_refs=PERSIST_ADD + PERSIST_TORN, ref_len_mean=sp["avg_len"],
+        ref_len_std=80, n_homolog_queries=0, n_decoy_queries=0, seed=1))
+    new_ids, new_lens = (new["ref_ids"][:PERSIST_ADD],
+                         new["ref_lens"][:PERSIST_ADD])
+    grown = _fresh_index(index, dev)
+    sh = ShardedIndex(grown, [dev] * 4)
+    grown.add(new_ids, new_lens)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sh.refresh()
+    torch.cuda.synchronize()
+    refresh_s = time.perf_counter() - t0
+    if sh._delta is None or sh.epoch != (1, 2):
+        raise AssertionError(f"refresh() re-placed instead of carrying a "
+                             f"delta (epoch {sh.epoch})")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = SignatureIndex.build(
+        index.cfg, _padded(refs[0], new_ids),
+        np.concatenate([refs[1], new_lens]), device=dev)
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    if not np.array_equal(full.sigs, grown.sigs):
+        raise AssertionError("job 1 over all refs gives other signatures "
+                             "than the base plus the delta")
+    sh_full = ShardedIndex(full, [dev] * 4)
+    delta_out = []
+    for i in range(0, q.shape[0], batch):
+        got = sh.topk(q[i:i + batch], k=k, cap=32)
+        _same_topk(got, sh_full.topk(q[i:i + batch], k=k, cap=32),
+                   f"after refresh, batch {i // batch}")
+        _same_topk(got, topk_probe(full, q[i:i + batch], k=k, cap=32),
+                   f"after refresh vs topk_probe, batch {i // batch}")
+        delta_out.append(got)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sh.compact()
+    torch.cuda.synchronize()
+    compact_s = time.perf_counter() - t0
+    for i, want in zip(range(0, q.shape[0], batch), delta_out):
+        _same_topk(sh.topk(q[i:i + batch], k=k, cap=32), want,
+                   f"after compact, batch {i // batch}")
+    if sh._delta is not None:
+        raise AssertionError("compact() left a delta slab")
+    wall = time.perf_counter() - t_phase
+    log(f"[shard] {grown.size} refs: +{PERSIST_ADD} refs (seed 1) carried as "
+        f"a delta slab, refresh() {refresh_s:.4f} s, then == a ShardedIndex "
+        f"over an index built from all {full.size} refs ({full_s:.2f} s) and "
+        f"== its topk_probe; compact() {compact_s:.4f} s, results identical; "
+        f"phase wall clock {wall:.1f} s")
+    return dict(
+        cap=cap, probe_ms={str(n): dict(p50=float(np.percentile(v, 50)),
+                                        p95=float(np.percentile(v, 95)))
+                           for n, v in out.items()},
+        refresh_s=refresh_s, compact_s=compact_s, wall_s=wall)
+
+
+def phase_fleet(torch, ops, dev, index, serve_data, log):
+    """``ReplicaFleet`` (2 replicas of 2 shards) behind ``AsyncEngine`` on
+    an index of its own over phase 2's signatures: FLEET_QUERIES
+    single-query futures, FLEET_INGEST refs ingested mid-stream, the
+    serving CLI's chaos script installed."""
+    from repro_torch.data.synthetic import (SyntheticProteinConfig,
+                                            make_protein_sets)
+    from repro_torch.faults import FaultPlan
+    from repro_torch.index import QueryEngine, ServingConfig
+    from repro_torch.serve import AsyncEngine, Completed, ReplicaFleet
+
+    t_phase = time.perf_counter()
+    sp = _dataset("swissprot")
+    new = make_protein_sets(SyntheticProteinConfig(
+        n_refs=FLEET_INGEST, ref_len_mean=sp["avg_len"], ref_len_std=80,
+        n_homolog_queries=0, n_decoy_queries=0, seed=2))
+    qi, ql = serve_data["query_ids"], serve_data["query_lens"]
+    # the re-rank may meet an ingested ref before the ingest is over:
+    # every replica holds the rows of both
+    refs = (_padded(serve_data["ref_ids"], new["ref_ids"]),
+            np.concatenate([serve_data["ref_lens"], new["ref_lens"]]))
+    cfg = ServingConfig(k=10, max_batch=64, rerank=True, mode="probe")
+    live = _fresh_index(index, dev)
+    fleet = ReplicaFleet(live, cfg, n_replicas=2, devices=[dev] * 2,
+                         ref_seqs=refs)
+    fleet.warmup(qi, ql)
+    plan = (FaultPlan()
+            .add("replica.query", "raise", on=2)
+            .add("replica.query", "raise", on=5)
+            .add("replica.query", "latency", on=6, delay_s=0.03))
+    rows = [qi[j % len(ql)][:ql[j % len(ql)]] for j in range(FLEET_QUERIES)]
+    eng = AsyncEngine(fleet, max_wait_ms=2.0)
+    try:
+        with plan:
+            futs = []
+            t0 = time.perf_counter()
+            for j, row in enumerate(rows):
+                if j == FLEET_QUERIES // 2:
+                    # a quarter served at the base epoch, then the ingest
+                    # races the rest
+                    futs[FLEET_QUERIES // 4].result(timeout=300)
+                    ticket = fleet.ingest(new["ref_ids"], new["ref_lens"])
+                futs.append(eng.submit(row))
+            got = [f.result(timeout=300) for f in futs]
+            wall = time.perf_counter() - t0
+            if not ticket.wait(timeout=300) or not ticket.ok:
+                raise AssertionError(f"the live ingest failed: "
+                                     f"{ticket.error}")
+        st = eng.stats()
+        fs = fleet.stats()
+    finally:
+        clean = eng.close(timeout=60) and fleet.close(timeout=60)
+    if not clean:
+        raise AssertionError("a serving thread did not stop")
+    c = fs["counters"]
+    degraded = sum(1 for r in got if getattr(r, "degraded", False))
+    if (c["retries"], c["retry_success"], degraded, plan.fired()) != \
+            (2, 2, 0, 3) or plan.unfired():
+        raise AssertionError(f"chaos accounting: retries {c['retries']}, "
+                             f"retry_ok {c['retry_success']}, degraded "
+                             f"{degraded}, fired {plan.fired()} of 3")
+    # what each epoch's index answers: epoch 1 the base, epoch 2 an index
+    # built anew over the grown signatures
+    expect = {1: QueryEngine(index, cfg, ref_seqs=refs).query_batch(qi, ql),
+              2: QueryEngine(_fresh_index(live, dev), cfg,
+                             ref_seqs=refs).query_batch(qi, ql)}
+    epochs = {}
+    for j, r in enumerate(got):
+        if not isinstance(r, Completed):
+            raise AssertionError(f"future {j}: {r}")
+        want = expect.get(r.epoch)
+        if want is None or not (
+                np.array_equal(r.ids, want[0][j % len(ql)])
+                and np.array_equal(r.dists, want[1][j % len(ql)])):
+            raise AssertionError(f"future {j} at epoch {r.epoch} differs "
+                                 f"from an engine over the index at that "
+                                 f"epoch")
+        epochs[r.epoch] = epochs.get(r.epoch, 0) + 1
+    lat = st["latency"]
+    qps = FLEET_QUERIES / wall
+    phase_s = time.perf_counter() - t_phase
+    log(f"[fleet] 2 replicas x 2 shards on {dev} behind AsyncEngine: "
+        f"{FLEET_QUERIES} single-query futures in {wall:.3f} s ({qps:.1f} "
+        f"queries/s; p50 {lat['p50_ms']:.3f} ms, p95 {lat['p95_ms']:.3f} ms, "
+        f"p99 {lat['p99_ms']:.3f} ms submit to result; "
+        f"{st['counters']['batches']} batches) with {FLEET_INGEST} refs "
+        f"ingested mid-stream; served epochs {dict(sorted(epochs.items()))}, "
+        f"each result == an engine over the index at its epoch; chaos "
+        f"script: {c['retries']} retries, 0 degraded, fired "
+        f"{plan.fired()} of 3; phase wall clock {phase_s:.1f} s")
+    return dict(qps=qps, p50_ms=lat["p50_ms"], p95_ms=lat["p95_ms"],
+                wall_s=phase_s)
+
+
+def _run_cli(args, log, what):
+    """``python -m repro_torch.launch.search_serve`` with ``args`` in a
+    subprocess on the card: its output, which must end in exit code 0."""
+    src = Path(__file__).resolve().parent / "src"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.search_serve", *args],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(src)})
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log(f"[cli] {what}: {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"search_serve {what} exited "
+                             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    log(f"[cli] {what}: exit 0 in {wall:.1f} s")
+    return proc.stdout
+
+
+def phase_cli(log):
+    """The port's serving CLI at Swiss-Prot scale (4 shards, re-rank, a
+    FASTA appended, compaction, metrics and trace files), then the async
+    tier with the chaos script."""
+    import tempfile
+
+    from repro_torch.data.fasta import write_fasta
+    from repro_torch.data.synthetic import (SyntheticProteinConfig,
+                                            make_protein_sets)
+
+    sp = _dataset("swissprot")
+    new = make_protein_sets(SyntheticProteinConfig(
+        n_refs=CLI_ADD, ref_len_mean=150, ref_len_std=30,
+        n_homolog_queries=0, n_decoy_queries=0, seed=3))
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        fasta = tmp / "add.fasta"
+        write_fasta(fasta, [f"add{i}" for i in range(CLI_ADD)],
+                    new["ref_ids"], new["ref_lens"])
+        metrics, trace = tmp / "metrics.prom", tmp / "trace.json"
+        out = _run_cli(["--n-refs", str(sp["n"]), "--shards", "4",
+                        "--rerank", "--add-fasta", str(fasta), "--compact",
+                        "--index", str(tmp / "idx"),
+                        "--metrics-out", str(metrics),
+                        "--trace-out", str(trace)], log, "4 shards")
+        if "identical" not in out or "[quality]" not in out:
+            raise AssertionError("search_serve: no [quality] line or "
+                                 "compaction not identical")
+        text = metrics.read_text()
+        families = [ln for ln in text.splitlines() if ln.startswith("# TYPE")]
+        events = json.loads(trace.read_text())["traceEvents"]
+        names = {e["name"] for e in events}
+        if not families or not {"ring_probe", "refresh", "query_batch"} <= names:
+            raise AssertionError(f"metrics or trace incomplete: "
+                                 f"{len(families)} families, spans "
+                                 f"{sorted(names)}")
+        log(f"[cli] --metrics-out parsed: {len(families)} metric families; "
+            f"--trace-out parsed: {len(events)} events, spans include "
+            f"ring_probe, refresh, query_batch")
+        out = _run_cli(["--n-refs", str(CLI_CHAOS_REFS), "--shards", "2",
+                        "--replicas", "2", "--chaos", "--rerank",
+                        "--add-fasta", str(fasta), "--compact",
+                        "--index", str(tmp / "idx_chaos")], log,
+                       "2 replicas, chaos")
+        for want in ("retries=2", "degraded_batches=0", "fired 3 of 3",
+                     "identical", "shed=0, degraded=0"):
+            if want not in out:
+                raise AssertionError(f"search_serve --chaos: no {want!r}")
 
 
 def _pair_blocks(pairs, q_ids, q_lens, r_ids, r_lens):
@@ -2031,6 +2382,18 @@ def main() -> int:
                                       serve_probe, log)
     log(f"[main] kernel launches on the dense join's search_pairs (K6's "
         f"path): {json.dumps(search_l)}")
+    # the serving tier records into a dict of its own: K7's first launch
+    # stays the all-pairs one, and no kernel's record moves
+    main_record, ops.RECORDED = ops.RECORDED, {}
+    shard, shard_l = _window(torch, ops, lambda: phase_shard(
+        torch, ops, dev, index, serve_data, log))
+    fleet, fleet_l = _window(torch, ops, lambda: phase_fleet(
+        torch, ops, dev, index, serve_data, log))
+    ops.RECORDED = main_record
+    log(f"[main] kernel launches on the [shard] path: {json.dumps(shard_l)}; "
+        f"on the [fleet] path: {json.dumps(fleet_l)}")
+    log(f"[main] [shard] {json.dumps(shard)}; [fleet] {json.dumps(fleet)}")
+    phase_cli(log)
     persist, persist_l = _window(torch, ops, lambda: phase_persist(
         torch, ops, dev, index, serve_data, serve_probe, log))
     log(f"[main] kernel launches on the [persist] path: "
@@ -2046,6 +2409,9 @@ def main() -> int:
     log(f"[main] kernel launches on the [quality] paths (the matmul build, "
         f"the scoring): {json.dumps(quality_l)}")
     for path, counts, names in (
+            ("[shard]", shard_l, ("wave_scores_linear",
+                                  "wave_scores_affine", "sw_rowwave")),
+            ("[fleet]", fleet_l, ("wave_scores_linear",)),
             ("[persist]", persist_l, ("hamming_dist", "wave_scores_linear",
                                       "wave_scores_affine")),
             ("[quality]", quality_l, ("siggen_accumulate", "sw_rowwave",
@@ -2094,6 +2460,10 @@ def main() -> int:
         f"{json.dumps(wide.pop('launches'))}")
     for row in rows:
         row.update(wide.get(row["name"], {}))
+        if row["name"] in ("wave_scores_linear", "wave_scores_affine",
+                           "sw_rowwave"):
+            row["shard_launches"] = shard_l[row["name"]]
+            row["fleet_launches"] = fleet_l[row["name"]]
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": rows}))

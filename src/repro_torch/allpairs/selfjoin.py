@@ -24,8 +24,9 @@ pairs against every earlier segment's matching buckets. Its union with
 the old pair set is exactly the from-scratch self-join of the grown
 corpus.
 
-Not ported: ``join_impl="legacy"`` (by decision, ROADMAP Queue 1 item 7)
-and ``n_shards > 1`` (sharding, Queue 1 item 8); both raise.
+Not ported: ``join_impl="legacy"`` (by decision, ROADMAP Queue 1 "Not
+ported") and ``n_shards > 1`` (the sharded all-pairs slice, Queue 1 item
+1); both raise.
 """
 from __future__ import annotations
 
@@ -52,12 +53,13 @@ def _check_route(join_impl: str, n_shards: int) -> None:
                          f"(expected one of {JOIN_IMPLS})")
     if join_impl == "legacy":
         raise NotImplementedError(
-            "join_impl='legacy' is not ported by decision (ROADMAP Queue 1 "
-            "item 7): it gives the same arrays as join_impl='spgemm'")
+            "join_impl='legacy' is not ported by decision (ROADMAP Queue 1, "
+            "'Not ported'): it gives the same arrays as join_impl='spgemm'")
     if n_shards != 1:
         raise NotImplementedError(
             f"n_shards={n_shards}: sharded joins come with ROADMAP Queue 1 "
-            f"item 8; the result arrays are the same for every n_shards")
+            f"item 1 (the sharded all-pairs slice); the result arrays are "
+            f"the same for every n_shards")
 
 
 def _shard_caps(part: BucketPartition) -> np.ndarray:

@@ -24,9 +24,9 @@ The port of ``repro/allpairs/tiles.py``. The plan is the reference's:
 The reference's ``use_pallas``/``pallas_interpret`` have no meaning here
 (routing is by device), nor have its host-gather and per-wave-sync
 profiling switches (the device gather is the only gather; the spans time
-each wave's issue), and ``n_devices > 1`` comes with sharding (ROADMAP
-Queue 1 item 8). Scores (and PID, through the host traceback) come back
-aligned with the input pair order.
+each wave's issue), and ``n_devices > 1`` comes with the sharded
+all-pairs slice (ROADMAP Queue 1 item 1). Scores (and PID, through the
+host traceback) come back aligned with the input pair order.
 """
 from __future__ import annotations
 
@@ -290,7 +290,8 @@ def score_pairs(ids: np.ndarray, lens: np.ndarray, pairs: np.ndarray,
     if cfg.n_devices > 1:
         raise NotImplementedError(
             f"n_devices={cfg.n_devices}: multi-device waves come with "
-            f"sharding (ROADMAP Queue 1 item 8); scores do not depend on it")
+            f"ROADMAP Queue 1 item 1 (the sharded all-pairs slice); scores "
+            f"do not depend on it")
     dev = resolve_device(device)
     ids = np.asarray(ids, np.int8)
     pairs = np.asarray(pairs, np.int32)

@@ -2,10 +2,11 @@
 
 Every (band, key) bucket is owned by shard ``mix32(key) % n_shards``, and
 each shard gets a self-contained stacked-padded CSR slab, the layout the
-fused probe runs against (``repro/index/partition.py``). The single-device
-probe is shard 0 of the 1-way partition. Sharded serving is not ported
-yet; this module carries what the single-device probe and the all-pairs
-self-join need.
+fused probe runs against (``repro/index/partition.py``), with its bucket
+entries' signature rows when the index passes its signatures. The
+single-device probe is shard 0 of the 1-way partition; the sharded
+serving ring (:class:`repro_torch.index.shard.ShardedIndex`) probes
+every shard's slab.
 
 Padding follows the probe's inertness rules: keys pad by repeating the
 last key (sorted order kept; a search finds the first occurrence), offsets
@@ -17,13 +18,14 @@ import numpy as np
 import torch
 
 from ..core.join import mix32
-from ..util import next_pow2
+from ..util import next_pow2, u32_to_i32
 
 
-def pad_slabs_pow2(keys, offs, ids):
+def pad_slabs_pow2(keys, offs, ids, esig=None):
     """Pad stacked CSR slabs' bucket (U) and entry (E) axes to powers of
-    two, on the trailing axes, under the inertness rules above (ids pad
-    with zeros, which no empty bucket ever reaches)."""
+    two, on the trailing axes, under the inertness rules above (ids — and
+    entry-signature rows (..., E, nw) when given — pad with zeros, which no
+    empty bucket ever reaches)."""
     U, E = keys.shape[-1], ids.shape[-1]
     Uq, Eq = next_pow2(max(U, 1)), next_pow2(max(E, 1))
     if Uq > U:
@@ -34,7 +36,11 @@ def pad_slabs_pow2(keys, offs, ids):
     if Eq > E:
         ids = np.concatenate(
             [ids, np.zeros(ids.shape[:-1] + (Eq - E,), ids.dtype)], axis=-1)
-    return keys, offs, ids
+        if esig is not None:
+            pad = np.zeros(esig.shape[:-2] + (Eq - E, esig.shape[-1]),
+                           esig.dtype)
+            esig = np.concatenate([esig, pad], axis=-2)
+    return (keys, offs, ids) if esig is None else (keys, offs, ids, esig)
 
 
 def bucket_owners(keys, n_shards: int) -> np.ndarray:
@@ -73,15 +79,19 @@ class BucketPartition:
     per-shard host CSRs (``shards[s][b]``), the exact within-bucket pair
     total of each (shard, band) in int64 (``pair_totals``, what the
     self-join sizes its buffers from: it must never wrap) and the stacked
-    padded slabs, uploaded to ``device`` once on first use."""
+    padded slabs, uploaded to ``device`` once on first use. With the
+    index's packed signatures ``sigs`` (N, nw) uint32, each slab also
+    carries its entries' signature rows (:meth:`host_entry_sigs`), so a
+    shard's probe never needs the whole (N, nw) matrix."""
 
-    def __init__(self, csr_per_band, n_shards: int, *,
+    def __init__(self, csr_per_band, n_shards: int, sigs=None, *,
                  device=torch.device("cpu")):
         if n_shards < 1:
             raise ValueError(f"n_shards must be >= 1, got {n_shards}")
         self.n_shards = int(n_shards)
         self.n_bands = len(csr_per_band)
         self.device = torch.device(device)
+        self._sigs = None if sigs is None else np.asarray(sigs, np.uint32)
         owners = [bucket_owners(keys, self.n_shards)
                   for keys, _, _ in csr_per_band]
         self.shards = [
@@ -94,6 +104,8 @@ class BucketPartition:
                                                         self.n_bands)
         self._stacked = self._stack()
         self._dev = None
+        self._esig_np = None
+        self._esig_dev = None
 
     def _stack(self):
         """keys (S, nb, U) uint32, offsets (S, nb, U+1) int32,
@@ -130,6 +142,30 @@ class BucketPartition:
     def host_slabs(self):
         """The stacked numpy slabs (keys, offsets, ids)."""
         return self._stacked
+
+    def host_entry_sigs(self) -> np.ndarray:
+        """Per-entry signature rows aligned with the ids slab: (S, nb, E,
+        nw) uint32 numpy. Padded and empty slots hold id 0's row, which the
+        probe's mask discards. Built lazily: only the serving ring pays."""
+        if self._sigs is None:
+            raise ValueError("partition built without sigs; entry "
+                             "signatures unavailable")
+        if self._esig_np is None:
+            ids_s = self._stacked[2]
+            if self._sigs.shape[0] == 0:    # empty index: all-pad slots
+                self._esig_np = np.zeros(ids_s.shape + (self._sigs.shape[1],),
+                                         np.uint32)
+            else:
+                self._esig_np = self._sigs[ids_s]
+        return self._esig_np
+
+    def device_entry_sigs(self) -> torch.Tensor:
+        """:meth:`host_entry_sigs` on the device as int32 bit patterns
+        (uploaded once)."""
+        if self._esig_dev is None:
+            self._esig_dev = u32_to_i32(self.host_entry_sigs()).to(
+                self.device)
+        return self._esig_dev
 
     def device_slabs(self):
         """The stacked slabs on the device (uploaded once): keys as int64

@@ -13,6 +13,9 @@ Two exact-filter paths:
 * ``probe`` — CSR bucket probing generates candidates; only candidate
   signatures are gathered and popcount-filtered. Right at scale.
 
+With ``sharded=`` (a :class:`~repro_torch.index.shard.ShardedIndex`) the
+probe runs the shard ring instead, bit-exact with the ``probe`` path.
+
 Ties: Hamming distances tie constantly, and the reference's
 ``jax.lax.top_k`` returns the lower index first among equal values.
 ``torch.topk`` promises no order among ties, so the top-k here runs on the
@@ -163,7 +166,7 @@ class ServingConfig:
     dense_threshold: int = 1024     # "auto": dense kernel below this size
     mode: str = "auto"              # "probe" | "dense" | "auto"
     rerank: bool = False            # Smith-Waterman re-rank of the top-k
-    dp_kernel: str = "wavefront"    # "wavefront" (K3) | "rowwave" (CPU only)
+    dp_kernel: str = "wavefront"    # "wavefront" (K3) | "rowwave" (K7)
     gap_mode: str = "linear"        # "linear" | "affine" (Gotoh)
     gap_open: int | None = None     # affine defaults: BLOSUM62 -11 / -1
     gap_extend: int | None = None
@@ -226,16 +229,19 @@ class QueryEngine:
     ``submit()`` enqueues raw sequences (strings or encoded int8 rows);
     ``flush()`` drains the queue in fixed-shape micro-batches;
     ``query_batch()`` is the synchronous batch entry. ``ref_seqs=(ids,
-    lens)`` enables Smith-Waterman re-ranking.
+    lens)`` enables Smith-Waterman re-ranking; ``sharded=`` a
+    :class:`~repro_torch.index.shard.ShardedIndex` over ``index`` serves
+    the probe through its shard ring.
     """
 
     def __init__(self, index: SignatureIndex, cfg: ServingConfig | None = None,
-                 *, ref_seqs=None, name: str | None = None):
+                 *, ref_seqs=None, sharded=None, name: str | None = None):
         self.index = index
         self.device = index.device
         self.cfg = cfg or ServingConfig()
         self.sl = ScalLoPS(index.cfg, device=self.device)
         self.ref_seqs = ref_seqs
+        self.sharded = sharded
         self.name = name or f"engine{next(_engine_ids)}"
         self._probe_cap = self.cfg.probe_cap
         self._queue: list[tuple[np.ndarray, int]] = []
@@ -323,12 +329,19 @@ class QueryEngine:
 
         k = self.cfg.k
         truncated = False
-        if self._mode() == "dense":
-            nid, nd = topk_dense(self.index, q_sigs, k=k)
-        else:
-            nid, nd, self._probe_cap, truncated = topk_probe(
-                self.index, q_sigs, k=k, cap=self._probe_cap,
+        if self.sharded is not None:     # numpy out of the ring's home pass
+            nid, nd, self._probe_cap, truncated = self.sharded.topk(
+                q_sigs, k=k, cap=self._probe_cap,
                 max_cap=self.cfg.max_probe_cap)
+        else:
+            if self._mode() == "dense":
+                nid, nd = topk_dense(self.index, q_sigs, k=k)
+            else:
+                nid, nd, self._probe_cap, truncated = topk_probe(
+                    self.index, q_sigs, k=k, cap=self._probe_cap,
+                    max_cap=self.cfg.max_probe_cap)
+            nid = nid.cpu().numpy()
+            nd = nd.cpu().numpy()
         if truncated:
             self._stats.observe_truncation()
             warnings.warn(
@@ -336,8 +349,6 @@ class QueryEngine:
                 f"{self.cfg.max_probe_cap}; top-k may miss neighbors — "
                 f"raise ServingConfig.max_probe_cap", RuntimeWarning,
                 stacklevel=2)
-        nid = nid.cpu().numpy()
-        nd = nd.cpu().numpy()
         t_probe = time.perf_counter()
         nid[~q_valid] = -1
         nd[~q_valid] = -1
@@ -349,7 +360,8 @@ class QueryEngine:
         record_span("query_batch", t0, t_end, engine=self.name, B=B0)
         record_span("ladder", t0, t_ladder)
         record_span("sig", t_ladder, t_sig)
-        record_span("probe", t_sig, t_probe, cap=self._probe_cap)
+        record_span("probe", t_sig, t_probe, cap=self._probe_cap,
+                    sharded=self.sharded is not None)
         if self.cfg.rerank:
             record_span("rerank", t_probe, t_end)
         self._stats.observe_batch(B0, t_end - t0, {

@@ -269,7 +269,8 @@ class SignatureIndex:
         n = int(n_shards if n_shards is not None else self.n_shards)
         part = self._partitions.get(n)
         if part is None:
-            part = BucketPartition(self._csr_np, n, device=self.device)
+            part = BucketPartition(self._csr_np, n, sigs=self.sigs,
+                                   device=self.device)
             self._partitions[n] = part
         return part
 
@@ -283,7 +284,8 @@ class SignatureIndex:
             csr = seglib.merge_band_csrs([s.csr for s in segs])
         else:
             csr = [seglib._empty_csr() for _ in range(self.n_bands)]
-        return BucketPartition(csr, n_shards, device=self.device)
+        return BucketPartition(csr, n_shards, sigs=self.sigs,
+                               device=self.device)
 
     # ------------------------------------------------------------ probing
     def query_keys(self, q_sigs: torch.Tensor) -> torch.Tensor:

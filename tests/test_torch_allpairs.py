@@ -101,11 +101,12 @@ def test_selfjoin_empty_corpus():
 
 
 def test_unported_routes_raise(indexes):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 1, 'Not ported'"):
         lsh_self_join(indexes[1], join_impl="legacy")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    slice_ = r"Queue 1 item 1 \(the sharded all-pairs slice\)"
+    with pytest.raises(NotImplementedError, match=slice_):
         lsh_self_join(indexes[1], n_shards=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match=slice_):
         score_pairs(np.zeros((2, 4), np.int8), np.full(2, 4, np.int32),
                     np.array([[0, 1]], np.int32), WaveConfig(n_devices=2),
                     device="cpu")

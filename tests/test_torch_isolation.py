@@ -26,6 +26,9 @@ def _port_modules():
 def test_port_modules_import_without_jax():
     mods = _port_modules()
     assert "repro_torch.index.service" in mods and len(mods) >= 44
+    assert {"repro_torch.index.shard", "repro_torch.serve.engine",
+            "repro_torch.serve.fleet", "repro_torch.faults.supervisor",
+            "repro_torch.launch.search_serve"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules\n"
@@ -98,6 +101,26 @@ def test_new_entry_points_default_to_the_card(tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SignatureIndex.load(path)
     assert SignatureIndex.load(path, device="cpu").device.type == "cpu"
+
+
+def test_serving_tier_defaults_to_the_card():
+    """ShardedIndex places its shards on the card unless told otherwise,
+    and so the fleet."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from repro_torch.core.pipeline import LSHConfig
+    from repro_torch.index import ServingConfig, ShardedIndex, SignatureIndex
+    from repro_torch.serve import ReplicaFleet
+    idx = SignatureIndex(LSHConfig(), np.zeros((0, 1), np.uint32),
+                         np.zeros(0, bool), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ShardedIndex(idx, ["cuda"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ReplicaFleet(idx, ServingConfig(), n_replicas=1, devices=["cuda"],
+                     start_ingest=False)
+    fleet = ReplicaFleet(idx, ServingConfig(), n_replicas=1,
+                         start_ingest=False)
+    assert fleet._replicas[0].sharded.devices == (torch.device("cpu"),)
 
 
 def test_chip_smoke_alone_fails_and_reports_nothing(tmp_path):
