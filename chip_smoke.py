@@ -858,6 +858,33 @@ def _sharded_ms(torch, fn, q, batch, passes):
     return np.asarray(ms)
 
 
+def _device_busy_ms(torch, fn, q, batch):
+    """Device-busy ms per batch of one pass of ``fn`` over ``q``'s batches
+    under ``torch.profiler``: the union of the intervals of the kernels and
+    copies it traced on the card, over the number of batches. None when the
+    profiler saw no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn(q[:batch])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(0, q.shape[0], batch):
+            fn(q[i:i + batch])
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return None
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo = busy + hi - lo, a
+        hi = max(hi, b)
+    busy += hi - lo
+    return busy / 1e3 / -(-q.shape[0] // batch)
+
+
 def _same_topk(got, want, what):
     """(ids, dists, cap, truncated) of a ring == ``topk_probe``'s."""
     ids, dists = (x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
@@ -903,6 +930,7 @@ def phase_shard(torch, ops, dev, index, serve_data, log):
 
     ms = _sharded_ms(torch, probe, q, batch, SHARD_PASSES)
     out["unsharded"] = ms
+    busy = {"unsharded": _device_busy_ms(torch, probe, q, batch)}
     for n in SHARD_COUNTS:
         sh = ShardedIndex(index, [dev] * n)
         for i in range(0, q.shape[0], batch):
@@ -914,6 +942,8 @@ def phase_shard(torch, ops, dev, index, serve_data, log):
                    f"n_shards={n} from cap=1")
         out[n] = _sharded_ms(torch, lambda x: sh.topk(x, k=k, cap=cap), q,
                              batch, SHARD_PASSES)
+        busy[n] = _device_busy_ms(torch, lambda x: sh.topk(x, k=k, cap=cap),
+                                  q, batch)
         log(f"[shard] n_shards={n} on {dev}: ring top-k == topk_probe for "
             f"all {q.shape[0]} queries (ids, dists, cap, truncated; from "
             f"cap=1 the ring grew to {got[2]}); per-{batch}-query batch wall "
@@ -922,6 +952,16 @@ def phase_shard(torch, ops, dev, index, serve_data, log):
             f"{np.percentile(out[n], 95):.4f} over {len(out[n])} batches")
     log(f"[shard] unsharded topk_probe, same batches and cap: p50 "
         f"{np.percentile(ms, 50):.4f}, p95 {np.percentile(ms, 95):.4f} ms")
+    for name, b in busy.items():
+        wall = float(np.mean(out[name]))
+        log(f"[shard] {name if name == 'unsharded' else f'n_shards={name}'}:"
+            f" device busy " + ("not measured (torch.profiler traced no "
+                                "device activity)" if b is None else
+                                f"{b:.4f} ms a batch (torch.profiler, "
+                                f"union of kernel and copy intervals over "
+                                f"one pass) of {wall:.4f} ms mean wall, "
+                                f"share {b / wall:.4f}"))
+    ranked = {}
     for gap_mode, dp_kernel in (("linear", "wavefront"),
                                 ("affine", "wavefront"),
                                 ("linear", "rowwave")):
@@ -934,9 +974,16 @@ def phase_shard(torch, ops, dev, index, serve_data, log):
             raise AssertionError(f"QueryEngine(sharded=) with the {gap_mode} "
                                  f"{dp_kernel} re-rank differs from the "
                                  f"unsharded engine")
+        ranked[gap_mode, dp_kernel] = b
+    rw, wf = ranked["linear", "rowwave"], ranked["linear", "wavefront"]
+    if not (np.array_equal(rw[0], wf[0]) and np.array_equal(rw[1], wf[1])):
+        raise AssertionError("the sharded engine's linear row-wave re-rank "
+                             "(K7) ranks otherwise than its linear wavefront "
+                             "re-rank (K3)")
     log(f"[shard] QueryEngine(sharded=4 shards, rerank=True) == the "
         f"unsharded engine, {len(ql)} queries, with the linear and affine "
-        f"wavefront re-rank (K3) and the linear row wave (K7)")
+        f"wavefront re-rank (K3) and the linear row wave (K7); the row "
+        f"wave's (ids, dists) == the linear wavefront's")
 
     sp = _dataset("swissprot")
     new = make_protein_sets(SyntheticProteinConfig(
@@ -994,6 +1041,7 @@ def phase_shard(torch, ops, dev, index, serve_data, log):
         cap=cap, probe_ms={str(n): dict(p50=float(np.percentile(v, 50)),
                                         p95=float(np.percentile(v, 95)))
                            for n, v in out.items()},
+        busy_ms={str(n): b for n, b in busy.items()},
         refresh_s=refresh_s, compact_s=compact_s, wall_s=wall)
 
 
@@ -1023,6 +1071,8 @@ def phase_fleet(torch, ops, dev, index, serve_data, log):
     fleet = ReplicaFleet(live, cfg, n_replicas=2, devices=[dev] * 2,
                          ref_seqs=refs)
     fleet.warmup(qi, ql)
+    if ops.RECORDED is not None:    # K3's record: an AsyncEngine batch
+        ops.RECORDED.clear()
     plan = (FaultPlan()
             .add("replica.query", "raise", on=2)
             .add("replica.query", "raise", on=5)
@@ -1089,6 +1139,37 @@ def phase_fleet(torch, ops, dev, index, serve_data, log):
         f"{plan.fired()} of 3; phase wall clock {phase_s:.1f} s")
     return dict(qps=qps, p50_ms=lat["p50_ms"], p95_ms=lat["p95_ms"],
                 wall_s=phase_s)
+
+
+def _replay_tier(torch, records, log):
+    """The kernels of the [shard] and [fleet] windows held exactly against
+    their twins at the first inputs each window launched them on, and
+    timed. Returns per kernel the JSON keys of those shapes."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.sw import sw_rowwave, wave_scores
+    runners = {"wave_scores_linear": (wave_scores, ref.wave_scores_ref),
+               "wave_scores_affine": (wave_scores, ref.wave_scores_ref),
+               "sw_rowwave": (sw_rowwave, ref.sw_rowwave_ref)}
+    keys = {}
+    for path, rec, names in records:
+        for name in names:
+            if name not in rec:
+                raise AssertionError(f"the [{path}] window recorded no "
+                                     f"{name} launch")
+            args, kw = rec[name]
+            run, twin = runners[name]
+            _, err, ms, plain_ms, bound_ms, by = _check_and_time(
+                torch, name, args, kw, run, twin, 20, 0)
+            shapes = " x ".join(str(tuple(a.shape)) for a in args)
+            log(f"[{path}] {name} at {shapes} (its first launch there): "
+                f"exact vs twin; kernel {ms:.4f} ms (device, 20 launches in "
+                f"one CUDA graph), twin {plain_ms:.4f} ms, bound "
+                f"{bound_ms * 1e3:.3f} us ({by})")
+            keys.setdefault(name, {}).update({
+                f"{path}_shape": [list(a.shape) for a in args],
+                f"{path}_ms": ms, f"{path}_plain_ms": plain_ms,
+                f"{path}_bound_ms": bound_ms, f"{path}_max_abs_err": err})
+    return keys
 
 
 def _run_cli(args, log, what):
@@ -2382,14 +2463,21 @@ def main() -> int:
                                       serve_probe, log)
     log(f"[main] kernel launches on the dense join's search_pairs (K6's "
         f"path): {json.dumps(search_l)}")
-    # the serving tier records into a dict of its own: K7's first launch
-    # stays the all-pairs one, and no kernel's record moves
+    # the serving tier records into dicts of its own (K7's first launch
+    # stays the all-pairs one, and no kernel's record moves), replayed
+    # against the twins at the shapes these paths gave the kernels
     main_record, ops.RECORDED = ops.RECORDED, {}
     shard, shard_l = _window(torch, ops, lambda: phase_shard(
         torch, ops, dev, index, serve_data, log))
+    shard_rec, ops.RECORDED = ops.RECORDED, {}
     fleet, fleet_l = _window(torch, ops, lambda: phase_fleet(
         torch, ops, dev, index, serve_data, log))
-    ops.RECORDED = main_record
+    fleet_rec, ops.RECORDED = ops.RECORDED, main_record
+    tier = _replay_tier(torch, (
+        ("shard", shard_rec, ("wave_scores_linear", "wave_scores_affine",
+                              "sw_rowwave")),
+        ("fleet", fleet_rec, ("wave_scores_linear",))), log)
+    del shard_rec, fleet_rec
     log(f"[main] kernel launches on the [shard] path: {json.dumps(shard_l)}; "
         f"on the [fleet] path: {json.dumps(fleet_l)}")
     log(f"[main] [shard] {json.dumps(shard)}; [fleet] {json.dumps(fleet)}")
@@ -2464,6 +2552,7 @@ def main() -> int:
                            "sw_rowwave"):
             row["shard_launches"] = shard_l[row["name"]]
             row["fleet_launches"] = fleet_l[row["name"]]
+        row.update(tier.get(row["name"], {}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..core.join import mix32
-from ..util import next_pow2, u32_to_i32
+from ..util import next_pow2
 
 
 def pad_slabs_pow2(keys, offs, ids, esig=None):
@@ -105,7 +105,6 @@ class BucketPartition:
         self._stacked = self._stack()
         self._dev = None
         self._esig_np = None
-        self._esig_dev = None
 
     def _stack(self):
         """keys (S, nb, U) uint32, offsets (S, nb, U+1) int32,
@@ -158,14 +157,6 @@ class BucketPartition:
             else:
                 self._esig_np = self._sigs[ids_s]
         return self._esig_np
-
-    def device_entry_sigs(self) -> torch.Tensor:
-        """:meth:`host_entry_sigs` on the device as int32 bit patterns
-        (uploaded once)."""
-        if self._esig_dev is None:
-            self._esig_dev = u32_to_i32(self.host_entry_sigs()).to(
-                self.device)
-        return self._esig_dev
 
     def device_slabs(self):
         """The stacked slabs on the device (uploaded once): keys as int64

@@ -15,19 +15,18 @@ The query batch is split into per-shard blocks that go round the shards
 in a **two-phase** ring, the reference's ``ppermute`` ring as plain
 tensor code (one process, no ``torch.distributed``):
 
-* **phase 1 — collect**: each hop probes every resident shard's slab in
-  one batched call per device (searchsorted on the CSR keys, gather of
-  the matched entries' ids and signature rows) and writes them into the
-  block's carried candidate buffers. A (band, key) bucket is owned by
-  exactly one shard, so each buffer slot is written on exactly one hop.
-  The carried (keys, ids, signatures) then move one shard on:
-  ``torch.roll`` along the shard axis when every shard shares a device,
-  ``.to()`` between devices otherwise.
-* **phase 2 — score at home**: after ``n_shards`` hops each block is back
-  on its home shard, which runs ONE Hamming pass over its collected
-  candidates (the SWAR popcount of ``core/hamming.py``), then the shared
-  ``_dedup_candidates`` (distance, id) tie-break and top-k of
-  ``topk_probe``.
+* **phase 1 — collect**: the blocks a device holds probe every shard
+  resident there in one batched call (searchsorted on the CSR keys of
+  the stacked slabs, then a gather of the owning shard's matched entries'
+  ids and signature rows). A (band, key) bucket is owned by exactly one
+  shard, so each (query, band) slot has at most one owner. The carried
+  (keys, ids, signatures) then move to the next device with ``.to()``;
+  after one hop per device they are home. On one card — shards as a data
+  layout — that is one collect and no move at all.
+* **phase 2 — score at home**: each block's home device runs ONE Hamming
+  pass over its collected candidates (the SWAR popcount of
+  ``core/hamming.py``), then the shared ``_dedup_candidates`` (distance,
+  id) tie-break and top-k of ``topk_probe``.
 
 Growth is a **delta refresh**: segments sealed after the base placement
 partition on their own (bucket owners never change) and ride along as a
@@ -42,7 +41,9 @@ shards' collections is the single-device candidate set, and the home pass
 is ``topk_probe``'s filter. Results are bit-exact with
 :func:`repro_torch.index.service.topk_probe` for every ``n_shards`` —
 ids, distances, tie-breaks, the final cap and ``truncated`` (the overflow
-max is taken over every (shard, hop) probe).
+max is taken over every (shard, hop) probe). A call serves the slabs it
+found when it started: a refresh on another thread swaps them for the
+next call, never in the middle of a ring.
 """
 from __future__ import annotations
 
@@ -58,28 +59,36 @@ from ..obs.trace import record as record_span
 from ..util import resolve_device, u32_to_i32
 from .partition import pad_slabs_pow2
 from .service import _dedup_candidates, _finalize_topk
-from .spgemm import row_product_positions
+from .spgemm import match_buckets
 from .store import SignatureIndex
 
 
 def _collect(qk, slab, *, cap: int):
-    """Phase-1 collection on the slabs of the shards resident on one
-    device: qk (S, Bl, nb) int64 keys of the blocks they hold; slab keys
-    (S, nb, U), offsets (S, nb, U+1), ids (S, nb, E), entry signatures
-    (S, nb, E, nw) -> cand (S, nb, Bl, cap) int32 (-1 where unmatched),
-    sig (S, nb, Bl, cap, nw), size (S, nb, Bl) int32 — the true
-    matched-bucket sizes. No distance work: that happens once, at home."""
+    """Phase-1 collection on the stacked slabs of the shards resident on
+    one device: qk (Q, nb) int64 keys of the queries the device holds;
+    slab keys (S, nb, U), offsets (S, nb, U+1), ids (S, nb, E), entry
+    signatures (S, nb, E, nw) -> cand (nb, Q, cap) int32 (-1 where
+    unmatched), sig (nb, Q, cap, nw), size (nb, Q) int32 — the true
+    matched-bucket sizes. Each (band, query) bucket lives in at most one
+    of the S shards, the one with a nonzero size; its members are taken
+    from there. No distance work: that happens once, at home."""
     keys, offs, ids, esig = slab
     S, nb, E = ids.shape
-    Bl, nw = qk.shape[1], esig.shape[-1]
-    idx, ok, size = row_product_positions(
-        qk.transpose(1, 2).contiguous(), keys, offs, cap=cap, E=E)
-    flat = idx.reshape(S, nb, Bl * cap)
-    cand = torch.gather(ids, 2, flat).reshape(S, nb, Bl, cap)
-    sig = torch.gather(esig, 2, flat[..., None].expand(S, nb, Bl * cap, nw))
-    cand = torch.where(ok, cand, -1)
-    sig = torch.where(ok[..., None], sig.reshape(S, nb, Bl, cap, nw), 0)
-    return cand, sig, size
+    start, end = match_buckets(qk.T.expand(S, nb, -1).contiguous(), keys,
+                               offs)
+    size = end - start                              # (S, nb, Q), 0 off-owner
+    own = size.argmax(0, keepdim=True)              # (1, nb, Q)
+    start, size = start.gather(0, own)[0], size.gather(0, own)[0]
+    band = torch.arange(nb, device=qk.device)[:, None]
+    slot = torch.arange(cap, device=qk.device)
+    # flat (shard, band, entry) positions; those past the bucket are masked
+    flat = ((own[0] * nb + band) * E + start)[..., None] + slot
+    flat = flat.clamp_(max=ids.numel() - 1)
+    ok = slot < size[..., None]
+    cand = torch.where(ok, ids.reshape(-1)[flat], -1)
+    sig = torch.where(ok[..., None], esig.reshape(-1, esig.shape[-1])[flat],
+                      0)
+    return cand, sig, size.to(torch.int32)
 
 
 class ShardedIndex:
@@ -100,8 +109,6 @@ class ShardedIndex:
         for s, d in enumerate(self.devices):
             groups.setdefault(d, []).append(s)
         self._groups = [(d, tuple(m)) for d, m in groups.items()]
-        self._where = {s: (g, p) for g, (_, m) in enumerate(self._groups)
-                       for p, s in enumerate(m)}
         # Serializes this replica's slab swaps AND the backing index's lazy
         # lifecycle mutations (seal/merge/partition) that refresh triggers.
         # Reentrant: refresh() takes it and also runs under it from
@@ -206,75 +213,60 @@ class ShardedIndex:
         return (self._base_epoch, self._delta_epoch)
 
     # ------------------------------------------------------------ ring
-    def _rotate(self, per_group):
-        """Move every shard's carried tensor to the next shard (shard i's
-        to shard i+1, the reference's ``ppermute`` ring)."""
-        if len(self._groups) == 1:
-            return [torch.roll(per_group[0], 1, dims=0)]
-        n = self.n_shards
-        out = []
-        for dev, members in self._groups:
-            src = [self._where[(s - 1) % n] for s in members]
-            out.append(torch.stack([per_group[g][p].to(dev)
-                                    for g, p in src]))
-        return out
-
-    def _ring(self, qk_p, qs_p, *, Bl: int, cap: int, k: int):
-        """Both phases of the ring over the padded blocks: qk_p (n*Bl, nb)
-        int64, qs_p (n*Bl, nw) int32 -> (ids (n*Bl, k), dists (n*Bl, k))
-        int32 numpy and the largest matched-bucket size any probe saw."""
-        n = self.n_shards
+    def _ring(self, slabs, delta, qk_p, qs_p, *, Bl: int, cap: int, k: int):
+        """Both phases of the ring over the padded blocks, against the
+        per-group ``slabs`` and ``delta`` (or None): qk_p (n*Bl, nb) int64,
+        qs_p (n*Bl, nw) int32 -> (ids (n*Bl, k), dists (n*Bl, k)) int32
+        numpy and the largest matched-bucket size any probe saw."""
+        n, G = self.n_shards, len(self._groups)
         nb, nw = qk_p.shape[1], qs_p.shape[1]
-        parts = 2 if self._delta is not None else 1
-        C = nb * cap * parts
-        qk_b = qk_p.reshape(n, Bl, nb)
-        qk, idb, sgb, msz = [], [], [], []
-        for dev, members in self._groups:
-            m = len(members)
-            qk.append(qk_b[list(members)].to(dev))
-            idb.append(torch.full((m, Bl, C), -1, dtype=torch.int32,
-                                  device=dev))
-            sgb.append(torch.zeros((m, Bl, C, nw), dtype=torch.int32,
-                                   device=dev))
-            msz.append(torch.zeros((), dtype=torch.int32, device=dev))
-        for _ in range(n):
-            for g in range(len(self._groups)):
-                cand, sig, size = _collect(qk[g], self._slabs[g], cap=cap)
-                if self._delta is not None:
-                    c2, s2, z2 = _collect(qk[g], self._delta[g], cap=cap)
+        C = nb * cap * (1 if delta is None else 2)
+        # each group's home rows: the blocks of the shards it holds
+        rows = [slice(None)] if G == 1 else [
+            np.concatenate([np.arange(s * Bl, (s + 1) * Bl) for s in m])
+            for _, m in self._groups]
+        carried = [(qk_p[r].to(dev), None, None)
+                   for r, (dev, _) in zip(rows, self._groups)]
+        msz = []
+        for _ in range(G):
+            for g in range(G):
+                qk, idb, sgb = carried[g]
+                cand, sig, size = _collect(qk, slabs[g], cap=cap)
+                if delta is not None:
+                    c2, s2, z2 = _collect(qk, delta[g], cap=cap)
                     # a bucket split across base and delta is ONE bucket of
                     # the merged table: candidates union, true size is the
                     # sum
-                    cand = torch.cat([cand, c2], dim=3)
-                    sig = torch.cat([sig, s2], dim=3)
+                    cand = torch.cat([cand, c2], dim=2)
+                    sig = torch.cat([sig, s2], dim=2)
                     size = size + z2
-                m = cand.shape[0]
-                # (S, nb, Bl, cap') -> (S, Bl, nb*cap'), the fused-probe
-                # layout
-                cand = cand.permute(0, 2, 1, 3).reshape(m, Bl, C)
-                sig = sig.permute(0, 2, 1, 3, 4).reshape(m, Bl, C, nw)
-                ok = cand >= 0
-                idb[g] = torch.where(ok, cand, idb[g])
-                sgb[g] = torch.where(ok[..., None], sig, sgb[g])
-                msz[g] = torch.maximum(msz[g], size.max())
-            qk, idb, sgb = (self._rotate(x) for x in (qk, idb, sgb))
+                # (nb, Q, cap') -> (Q, nb*cap'), the fused-probe layout
+                Q = qk.shape[0]
+                cand = cand.transpose(0, 1).reshape(Q, C)
+                sig = sig.transpose(0, 1).reshape(Q, C, nw)
+                if idb is not None:
+                    # each slot is written on one hop only: where() is a
+                    # union
+                    ok = cand >= 0
+                    cand = torch.where(ok, cand, idb)
+                    sig = torch.where(ok[..., None], sig, sgb)
+                carried[g] = (qk, cand, sig)
+                msz.append(size.max())
+            if G > 1:   # every group's blocks move one device on
+                carried = [tuple(x.to(dev) for x in carried[(g - 1) % G])
+                           for g, (dev, _) in enumerate(self._groups)]
         # phase 2: one Hamming pass over each block's candidates at home,
         # then topk_probe's dedup + top-k tail
-        nid = np.empty((n, Bl, k), np.int32)
-        nd = np.empty((n, Bl, k), np.int32)
-        qs_b = qs_p.reshape(n, Bl, nw)
-        for g, (dev, members) in enumerate(self._groups):
-            m = len(members)
-            ids_g = idb[g].reshape(m * Bl, C)
-            qs = qs_b[list(members)].to(dev).reshape(m * Bl, nw)
-            dist = hamming_distance(qs[:, None, :],
-                                    sgb[g].reshape(m * Bl, C, nw))
-            cs, dvals = _dedup_candidates(ids_g, dist, ids_g >= 0)
-            gid, gd = _finalize_topk(dvals, cs, k)
-            nid[list(members)] = gid.reshape(m, Bl, k).cpu().numpy()
-            nd[list(members)] = gd.reshape(m, Bl, k).cpu().numpy()
+        nid = np.empty((n * Bl, k), np.int32)
+        nd = np.empty((n * Bl, k), np.int32)
+        for r, (dev, _), (_, idb, sgb) in zip(rows, self._groups, carried):
+            qs = qs_p[r].to(dev)
+            dist = hamming_distance(qs[:, None, :], sgb)
+            cs, dvals = _dedup_candidates(idb, dist, idb >= 0)
+            nid[r], nd[r] = torch.stack(
+                _finalize_topk(dvals, cs, k)).cpu().numpy()
         top = max(int(x) for x in msz)
-        return nid.reshape(n * Bl, k), nd.reshape(n * Bl, k), top
+        return nid, nd, top
 
     def topk(self, q_sigs, *, k: int, cap: int = 32, max_cap: int = 1 << 14):
         """Global top-k via shard-local bucket probes.
@@ -286,12 +278,15 @@ class ShardedIndex:
         same tie-breaks, same grow-and-retry overflow contract), whether
         the placement is one base slab or base + delta.
         """
-        self._refresh_if_stale()
+        with self.refresh_lock:     # one placement for the whole call
+            self._refresh_if_stale()
+            slabs, delta = self._slabs, self._delta
+            n_entries = self._n_base + self._n_delta
         q = q_sigs if torch.is_tensor(q_sigs) else u32_to_i32(q_sigs)
         q = q.to(self.index.device)
         B = q.shape[0]
         n = self.n_shards
-        if B == 0 or self._n_base + self._n_delta == 0:
+        if B == 0 or n_entries == 0:
             return (np.full((B, k), -1, np.int32),
                     np.full((B, k), -1, np.int32), cap, False)
         qk = self.index.query_keys(q).T                 # (B, nb) int64
@@ -306,13 +301,14 @@ class ShardedIndex:
         qs_p = torch.cat([q, q[:1].expand(pad, -1)])
         t_ring = time.perf_counter()
         while True:
-            nid, nd, top = self._ring(qk_p, qs_p, Bl=Bl, cap=cap, k=k)
+            nid, nd, top = self._ring(slabs, delta, qk_p, qs_p, Bl=Bl,
+                                      cap=cap, k=k)
             truncated = top > cap
             if not truncated or cap >= max_cap:
                 break
             cap = min(cap * 2, max_cap)     # grow-and-retry
         record_span("ring_probe", t_ring, time.perf_counter(), B=B,
                     shards=n, cap=cap, truncated=truncated,
-                    delta=self._delta is not None)
+                    delta=delta is not None)
         return nid[:B], nd[:B], cap, truncated
 

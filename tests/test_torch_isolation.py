@@ -55,6 +55,7 @@ def _imported_roots(path: Path):
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
+    + [str(p.relative_to(ROOT)) for p in (ROOT / "tools").glob("*.py")]
     + ["chip_smoke.py"]))
 def test_source_imports_neither_jax_nor_repro(path):
     roots = set(_imported_roots(ROOT / path))

@@ -109,8 +109,8 @@ def test_entry_sigs_and_padded_slabs_match_the_reference(data, layout, n):
     ej, et = pj.host_entry_sigs(), pt.host_entry_sigs()
     assert et.dtype == np.uint32 and et.shape == ej.shape
     np.testing.assert_array_equal(et, ej)
-    np.testing.assert_array_equal(
-        i32_to_u32(pt.device_entry_sigs()), np.asarray(pj.device_entry_sigs()))
+    # what the ring uploads (ShardedIndex._put) is these rows
+    np.testing.assert_array_equal(et, np.asarray(pj.device_entry_sigs()))
     for a, b in zip(pad_slabs_pow2(*pt.host_slabs(), et),
                     j_pad_slabs_pow2(*pj.host_slabs(), ej)):
         assert a.dtype == b.dtype
@@ -231,6 +231,44 @@ def test_ring_across_devices_moves_blocks_between_stacks(data, q_sigs):
         assert len(sh._groups) == 2
         _check(jidx, sh, q_sigs, cap=1, B=29)
     _add(pair, data, BASE)
+    _check(jidx, sh, q_sigs, cap=32)
+
+
+def test_refresh_on_another_thread_during_a_probe(data, q_sigs,
+                                                 monkeypatch):
+    """A refresh that lands while a ring runs (from a second thread, here
+    inside the ring's first collect) leaves that call on the placement it
+    started with; the next call serves the refreshed one. Each equals the
+    reference's topk_probe at its epoch."""
+    import threading
+
+    from repro_torch.index import shard as shard_mod
+    pair = _pair(data, slice(0, BASE))
+    jidx, tidx = pair
+    sh = ShardedIndex(tidx, ["cpu"] * 2)
+    qt, qn = q_sigs
+    before = j_topk_probe(jidx, qn, k=K, cap=32)
+    real, errors, fired = shard_mod._collect, [], []
+
+    def grow():
+        try:
+            _add(pair, data, BASE)
+            sh.refresh()
+        except BaseException as e:      # surfaced in the probing thread
+            errors.append(e)
+
+    def collect(*args, **kw):
+        if not fired:
+            fired.append(True)
+            t = threading.Thread(target=grow)
+            t.start()
+            t.join(timeout=60)
+            assert not t.is_alive() and not errors, errors
+        return real(*args, **kw)
+
+    monkeypatch.setattr(shard_mod, "_collect", collect)
+    _same(sh.topk(qt, k=K, cap=32), before)
+    assert fired and sh._delta is not None and sh.epoch == (1, 2)
     _check(jidx, sh, q_sigs, cap=32)
 
 
