@@ -79,7 +79,7 @@ Phases, any failure exits non-zero:
               (``sw_align_batch``) and K3 (``sw_wave_linear``) match on
               every pair; ``percent_identity`` on 8 pairs; the
               seed-and-extend baseline over as many queries as fit in
-              45 s; recall, precision, PID quartiles and the intersection
+              15 s; recall, precision, PID quartiles and the intersection
               with the baseline logged for information; card == CPU on
               256 refs and 64 queries (pairs, PIDs, baseline hits; both
               sides search the card's signatures: the k=4 tables take
@@ -91,12 +91,29 @@ Phases, any failure exits non-zero:
               equal the CPU's (K5's twin and the CPU pack) on the same
               index; the row wave (K7) over the prefilter survivors must
               give the wavefront's scores; and ``all_pairs_ingest`` of the
-              last 4,096 rows onto a run over the rest must give the full
-              run's family labels.
-11. joins   — the self-join's two routes (keyed dup-free and sort-dedup)
+              last 4,096 rows onto an index of the rest must give the full
+              run's family labels (the base run is cut to its join, which
+              must equal the full join among those rows; their forest is
+              the full run's surviving edges among them).
+11. mapreduce — the sharded all-pairs paths and the paper's MapReduce
+              engine on the objects of phases 3 and 10: the myva
+              self-join at 2 and 4 shards == the one-shard join; the
+              ingest's delta join at 1, 2 and 4 shards, equal, its pairs
+              scored by waves split over 4 device entries (K4, K3; then
+              K7 over the survivors) == the ingest's one-device scores;
+              ``distributed_flip_join`` at 547,169 x 454,401 (map,
+              shuffle sized from a host count of the records per (src,
+              dst), salting, reduce) at 1, 2 and 4 shards with 0 dropped,
+              its distinct within-d pairs == phase 3's flip join;
+              ``ring_sweep`` (K2 a hop) over 512 homolog fragments and
+              512 decoys == the flip join on them; the all-pairs CLI at
+              ``--shards 4`` and 1 in subprocesses, the same ``--out``
+              arrays, the first run's metrics snapshot merged by the
+              second.
+12. joins   — the self-join's two routes (keyed dup-free and sort-dedup)
               on the first 40,000 myva rows, where both apply: the same
               pairs, each route timed.
-12. kernels — every kernel held exactly against its plain torch twin and
+13. kernels — every kernel held exactly against its plain torch twin and
               timed on the card alone (its launches captured in one CUDA
               graph): on the inputs the main paths gave it first, and K4
               and K7 on one full wave of their most used shape; K2 and K6
@@ -110,13 +127,16 @@ Phases, any failure exits non-zero:
               stage (K7: the row-wave step): launches x the real-fill
               wave's ms over the stage's wall clock. K1's first launch
               at k=4 (phase 9) has a row of its own,
-              ``siggen_accumulate_k4``.
-13. small   — a 2,000-ref index served, and a 2,000-sequence corpus
+              ``siggen_accumulate_k4``. The first inputs phase 11 gave
+              K5, K4, K3, K7 and K2 are replayed too (``mr_*`` keys).
+14. small   — a 2,000-ref index served, and a 2,000-sequence corpus
               clustered by ``all_pairs_search`` (the kernel route above,
               and the default PID route), ``ScalLoPS.search`` with each
               join and a flip index's ``topk_probe``, on the card and on
-              the CPU (the twins): identical outputs.
-14. wide    — widths and lengths past the kernels' old limits: f = 512
+              the CPU (the twins): identical outputs; the corpus also at
+              ``n_shards=4`` on four entries of one device, card and
+              CPU, equal to one shard.
+15. wide    — widths and lengths past the kernels' old limits: f = 512
               (16 words) at NC_000913 scale through K1 (``siggen_method=
               "matmul"``, a grid per 256-column slice), the dense
               top-k (K2) and the dense join at d=1 (K6, then K2), card ==
@@ -138,11 +158,15 @@ paths), the whole of
 phase 7, the K1 build (phase 8), phase 9's matmul build (K1 at k=4) and
 its scoring (K7, K3), and in phase 10 the timed ``all_pairs_search`` (the
 all-pairs main path), the row wave over the survivors (K7's path), the
-base run and the ingest, each on its own, and in phase 14 each wide or
-long path. Phase 6's launches happen in its CLI processes and are not
-counted. K2's row also times the dense join's first emission tile. The
-kernel wrappers record their first inputs throughout phases 2-10, phases
-4-5 and 9 each into a record of their own. The build logs ptxas's registers and spills of every sw.cu
+base join and the ingest, each on its own, in phase 11 each sharded
+join, split score, row wave and ring sweep, and in phase 15 each wide or
+long path. The launches of phases 6 and 11's CLI runs happen in their
+processes and are not counted. K2's row also times the dense join's first
+emission tile. The kernel wrappers record their first inputs throughout
+phases 2-10, phases 4-5 and 9 each into a record of their own, and phase
+11 the first inputs of its 4-shard self-join (K5), its split waves (K4,
+K3, K7) and its 4-shard ring (K2), replayed against the twins under
+``mr_*`` keys. The build logs ptxas's registers and spills of every sw.cu
 and siggen.cu kernel. The output ends with the card's ``nvidia-smi`` name
 and power limit, one JSON line of kernels, and the ``ok`` line. Needs one CUDA
 card; imports nothing of JAX.
@@ -196,7 +220,7 @@ PERSIST_ADD = 4_096     # [persist]: refs add()ed before the delta save
 PERSIST_TORN = 64       # [persist]: refs of the save the torn write hits
 QUALITY_QUERIES = (512, 512)   # [quality]: homolog and decoy queries
 PID_PAIRS = 4_096       # [quality]: emitted pairs aligned for PID, at most
-SEED_EXTEND_S = 45.0    # [quality]: seconds of seed-and-extend search
+SEED_EXTEND_S = 15.0    # [quality]: seconds of seed-and-extend search
 QUALITY_CPU = (256, 64)  # [quality]: refs and queries of card == CPU
 SHARD_COUNTS = (1, 2, 4)   # [shard]: shard counts of the ring, one card
 SHARD_PASSES = 10       # [shard]: timed passes over the 256 queries
@@ -204,6 +228,15 @@ FLEET_QUERIES = 1_024   # [fleet]: single-query futures (4 x the 256)
 FLEET_INGEST = 1_024    # [fleet]: refs ingested mid-stream (seed 2)
 CLI_ADD = 1_024         # [cli]: refs of the FASTA --add-fasta appends
 CLI_CHAOS_REFS = 65_536  # [cli]: refs of the --replicas 2 --chaos run
+MR_SHARDS = (1, 2, 4)   # [mapreduce]: shard counts, all on the one card
+RING_QUERIES = 512      # [mapreduce]: homolog and decoy queries each of
+                        # the ring sweep (its (Q/n, R/n) distance block)
+MR_CLI = ["--n-families", "1024", "--family-size", "4",
+          "--n-singletons", "8192", "--len-mean", "305", "--prefilter",
+          "--pallas", "--incremental", "1024"]
+# the kernels [mapreduce] replays at the first inputs its paths gave them
+MR_REPLAYED = ("upper_pairs", "ungapped_scores", "wave_scores_linear",
+               "sw_rowwave", "hamming_dist")
 
 
 def _dataset(name: str) -> dict:
@@ -461,7 +494,8 @@ def _timed_search(torch, sl, q, r, mp):
 def phase_search(torch, ops, dev, index, serve_data, serve_probe, log):
     """Job 2 at the metagenomic scale against the Swiss-Prot index of
     phase 2. Returns the dense join's ``search_pairs`` launches (K6's
-    path) and the inputs of its first emission tile (K2)."""
+    path), the inputs of its first emission tile (K2) and, for
+    [mapreduce], the d=1 signatures and the flip join's pair keys."""
     from repro_torch.configs.scallops import perf_config
     from repro_torch.core.pipeline import ScalLoPS
     from repro_torch.data.synthetic import (SyntheticProteinConfig,
@@ -548,6 +582,9 @@ def phase_search(torch, ops, dev, index, serve_data, serve_probe, log):
     if int(counts.long().sum()) != len(keys):
         raise AssertionError(f"K6 counts sum to {int(counts.long().sum())}, "
                              f"the dense join found {len(keys)}")
+    # [mapreduce] runs the Signature Processor on the same signatures
+    mr_data = dict(q_sigs=q_sigs.cpu(), r_sigs=r_sigs.cpu(),
+                   flip_keys=keys.cpu(), n_hom=n_hom, f=cfg.f, d=cfg.d)
     log(f"[search] d={cfg.d}: flip, band and dense give one set of "
         f"{len(keys)} (q, r, dist) pairs ({len(mkeys)} after the masks), "
         f"none overflowed; every dist equals the popcount; K6's counts sum "
@@ -651,7 +688,7 @@ def phase_search(torch, ops, dev, index, serve_data, serve_probe, log):
         f"neighbours == the band index's ({sum(map(len, a))})")
     del fidx, eng
     torch.cuda.empty_cache()
-    return launches["dense"], emission
+    return launches["dense"], emission, mr_data
 
 
 def _padded(*blocks):
@@ -1142,14 +1179,21 @@ def phase_fleet(torch, ops, dev, index, serve_data, log):
 
 
 def _replay_tier(torch, records, log):
-    """The kernels of the [shard] and [fleet] windows held exactly against
-    their twins at the first inputs each window launched them on, and
-    timed. Returns per kernel the JSON keys of those shapes."""
+    """The kernels of the [shard], [fleet] and [mapreduce] windows held
+    exactly against their twins at the first inputs each window launched
+    them on, and timed. Returns per kernel the JSON keys of those
+    shapes."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.sw import sw_rowwave, wave_scores
+    from repro_torch.kernels.hamming import hamming_dist
+    from repro_torch.kernels.spgemm import upper_pairs
+    from repro_torch.kernels.sw import sw_rowwave, ungapped_scores, \
+        wave_scores
     runners = {"wave_scores_linear": (wave_scores, ref.wave_scores_ref),
                "wave_scores_affine": (wave_scores, ref.wave_scores_ref),
-               "sw_rowwave": (sw_rowwave, ref.sw_rowwave_ref)}
+               "sw_rowwave": (sw_rowwave, ref.sw_rowwave_ref),
+               "ungapped_scores": (ungapped_scores, ref.ungapped_scores_ref),
+               "upper_pairs": (upper_pairs, ref.upper_pairs_ref),
+               "hamming_dist": (hamming_dist, ref.hamming_dist_ref)}
     keys = {}
     for path, rec, names in records:
         for name in names:
@@ -1172,22 +1216,22 @@ def _replay_tier(torch, records, log):
     return keys
 
 
-def _run_cli(args, log, what):
-    """``python -m repro_torch.launch.search_serve`` with ``args`` in a
+def _run_cli(args, log, what, cli="search_serve", tag="[cli]"):
+    """``python -m repro_torch.launch.<cli>`` with ``args`` in a
     subprocess on the card: its output, which must end in exit code 0."""
     src = Path(__file__).resolve().parent / "src"
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.search_serve", *args],
+        [sys.executable, "-m", f"repro_torch.launch.{cli}", *args],
         capture_output=True, text=True, timeout=600,
         env={**os.environ, "PYTHONPATH": str(src)})
     wall = time.perf_counter() - t0
     for line in proc.stdout.splitlines():
-        log(f"[cli] {what}: {line}")
+        log(f"{tag} {what}: {line}")
     if proc.returncode != 0:
-        raise AssertionError(f"search_serve {what} exited "
+        raise AssertionError(f"{cli} {what} exited "
                              f"{proc.returncode}: {proc.stderr[-3000:]}")
-    log(f"[cli] {what}: exit 0 in {wall:.1f} s")
+    log(f"{tag} {what}: exit 0 in {wall:.1f} s")
     return proc.stdout
 
 
@@ -1553,8 +1597,9 @@ def _plan_wave(corpus, lens, pool, shape, wcfg, wave_batch):
 
 
 def phase_allpairs(torch, ops, dev, log):
-    from repro_torch.allpairs import (all_pairs_ingest, all_pairs_search,
-                                      forest_from_result, score_pairs)
+    from repro_torch.allpairs import (FamilyForest, all_pairs_ingest,
+                                      all_pairs_search, lsh_self_join,
+                                      score_pairs)
     from repro_torch.allpairs.tiles import _DeviceCorpus
     from repro_torch.data.synthetic import (FamilyCorpusConfig,
                                             make_family_corpus)
@@ -1676,21 +1721,33 @@ def phase_allpairs(torch, ops, dev, log):
         bad = int((rw.scores != res.scored.scores[kept]).sum())
         raise AssertionError(f"rowwave != wavefront on {bad} survivors")
 
-    # ingest: a run over all but the last rows, then the last rows ingested
+    # ingest: the last rows ingested onto an index of the rest. The base
+    # run is cut to its join: the base rows' pairs are the full run's
+    # pairs among them, scored alike, so its forest is the full run's
+    # surviving edges among them (a whole base run repeats ~250 s of the
+    # host's wave loop)
     base = N - INGEST_ROWS
     t0 = time.perf_counter()
-    res_b, base_l = _window(torch, ops, lambda: all_pairs_search(
-        ids[:base], lens[:base], cfg, device=dev))
+    b_index = SignatureIndex.build(cfg.lsh, ids[:base], lens[:base],
+                                   device=dev)
+    b_join, base_l = _window(torch, ops, lambda: lsh_self_join(
+        b_index, max_pairs=cfg.max_pairs))
+    in_base = res.pairs[:, 1] < base
+    if not np.array_equal(b_join.pairs, res.pairs[in_base]):
+        raise AssertionError("the base rows' join differs from the full "
+                             "join's pairs among them")
+    forest = FamilyForest(base)
+    forest.union_edges(res.pairs[in_base & res.families.edge_mask])
     t1 = time.perf_counter()
-    forest = forest_from_result(res_b)
     ing, ing_l = _window(torch, ops, lambda: all_pairs_ingest(
-        ids, lens, base, cfg, index=res_b.index, forest=forest))
+        ids, lens, base, cfg, index=b_index, forest=forest))
     t2 = time.perf_counter()
-    log(f"[allpairs] ingest: all_pairs_search over {base} rows "
-        f"{t1 - t0:.3f} s ({res_b.join.n_candidates} candidates; launches "
-        f"{json.dumps(base_l)}), then all_pairs_ingest of {INGEST_ROWS} "
-        f"rows {t2 - t1:.3f} s ({ing.join.n_candidates} delta candidates, "
-        f"{int(ing.edge_mask.sum())} new edges; launches "
+    log(f"[allpairs] ingest: index and join over {base} rows {t1 - t0:.3f}"
+        f" s ({b_join.n_candidates} candidates == the full join's among "
+        f"them; launches {json.dumps(base_l)}), the forest of their "
+        f"surviving edges in the full run, then all_pairs_ingest of "
+        f"{INGEST_ROWS} rows {t2 - t1:.3f} s ({ing.join.n_candidates} "
+        f"delta candidates, {int(ing.edge_mask.sum())} new edges; launches "
         f"{json.dumps(ing_l)})")
     if not np.array_equal(ing.labels, res.labels):
         bad = int((ing.labels != res.labels).sum())
@@ -1701,7 +1758,8 @@ def phase_allpairs(torch, ops, dev, log):
     stages = {"ungapped_scores": ("the all-pairs prefilter stage", pre_s),
               "wave_scores_linear": ("the all-pairs SW stage", sw_s),
               "sw_rowwave": ("the row-wave step", rw_s)}
-    return index, res, corpus, main_l, rw_l, full, real, stages
+    return (index, res, corpus, main_l, rw_l, full, real, stages,
+            b_index, ing)
 
 
 def phase_join_routes(torch, corpus, dev, log):
@@ -1776,6 +1834,290 @@ def phase_allpairs_cpu_join(index, res, log):
     log(f"[allpairs] card join == CPU join (K5 twin + CPU pack, "
         f"{time.perf_counter() - t0:.1f} s on the host): "
         f"{join.n_candidates} pairs")
+
+
+def _recording(ops, into, fn):
+    """``fn()`` with the kernel wrappers recording into a dict of its
+    own; the first inputs of each kernel it launched join ``into`` unless
+    ``into`` has that kernel already."""
+    outer, ops.RECORDED = ops.RECORDED, {}
+    try:
+        out = fn()
+    finally:
+        inner, ops.RECORDED = ops.RECORDED, outer
+    for name, rec in inner.items():
+        into.setdefault(name, rec)
+    return out
+
+
+def _padded_rows(x, ids, n):
+    """Rows padded with zeros (signatures) and -1 (ids) to a multiple of
+    n shards."""
+    import torch
+    pad = -len(ids) % n
+    return (torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))]),
+            torch.cat([ids, ids.new_full((pad,), -1)]))
+
+
+def _route_counts(qs, rs, masks, n, n_salt):
+    """Host count of the shuffle's records per (src, dst): each source
+    shard's query keys (one record per salt and the unsalted key) and
+    reference flip keys, by owner ``key % n``. Salting XORs bits 24 and
+    up, which leaves ``key % n`` alone for n dividing 2^24."""
+    assert (1 << 24) % n == 0
+    out = np.zeros((n, n), np.int64)
+    q = qs.reshape(n, -1)
+    r = rs.reshape(n, -1)
+    for src in range(n):
+        qk = q[src][q[src] >= 0].astype(np.int64)
+        rk = r[src][r[src] >= 0].astype(np.int64)
+        out[src] = (np.bincount(qk % n, minlength=n) * (n_salt + 1)
+                    + np.bincount(((rk[:, None] ^ masks[None, :]) % n)
+                                  .ravel(), minlength=n))
+    return out
+
+
+def phase_mapreduce(torch, ops, dev, index, res, ing_index, ing, corpus,
+                    search, log):
+    """The sharded all-pairs paths and the paper's MapReduce engine on
+    the card, each against its one-shard or flip-join answer: the myva
+    self-join at 2 and 4 shards, the ingest's delta join at 1, 2 and 4
+    and its pairs scored by waves split over 4 devices (K4, K3, then K7);
+    ``distributed_flip_join`` at [search]'s scale and ``ring_sweep`` over
+    1,024 of its queries, at 1, 2 and 4 shards; the all-pairs CLI at 4
+    shards and at 1. Returns the launches of its paths by kernel and the
+    first inputs they gave K5 (4 shards), K4/K3 and K7 (the split waves)
+    and K2 (a hop of the 4-shard ring)."""
+    from repro_torch.allpairs import (lsh_delta_join, lsh_self_join,
+                                      score_pairs)
+    from repro_torch.allpairs.selfjoin import _shard_caps
+    from repro_torch.core import mapreduce as mr
+    from repro_torch.core.hamming import hamming_distance
+    from repro_torch.core.join import flip_masks
+    from repro_torch.util import next_pow2
+
+    t_phase = time.perf_counter()
+    cfg = _allpairs_config()
+    ids, lens = corpus["ids"], corpus["lens"]
+    launches = {name: 0 for name in ops.LAUNCHES}
+    record = {}
+
+    def count(l):
+        for name, v in l.items():
+            launches[name] += v
+
+    # the myva self-join at 2 and 4 shards == [allpairs]' one-shard join
+    for n in (2, 4):
+        caps = _shard_caps(index.partition(n))
+        live = caps[caps > 0]
+        route = "uniform" if live.min() == live.max() else "skewed"
+        t0 = time.perf_counter()
+        join, l = _window(torch, ops, lambda: _recording(
+            ops, record if n == 4 else {}, lambda: lsh_self_join(
+                index, max_pairs=cfg.max_pairs, n_shards=n,
+                devices=[dev] * n)))
+        dt = time.perf_counter() - t0
+        count(l)
+        if not np.array_equal(join.pairs, res.join.pairs):
+            raise AssertionError(f"the {n}-shard self-join differs from the "
+                                 f"one-shard join")
+        if l["upper_pairs"] <= 0:
+            raise AssertionError(f"the {n}-shard self-join never launched "
+                                 f"upper_pairs")
+        log(f"[mapreduce] self-join, {index.size} myva rows, {n} shards "
+            f"on the card: {dt:.3f} s, {join.n_candidates} pairs == the "
+            f"one-shard join; {route} caps {caps.tolist()}; K5 launches "
+            f"{l['upper_pairs']}")
+
+    # the ingest's delta join at 1, 2 and 4 shards, its pairs scored by
+    # waves split over 4 devices (all the card) == one device
+    base = len(lens) - INGEST_ROWS
+    deltas = {}
+    for n in MR_SHARDS:
+        t0 = time.perf_counter()
+        deltas[n], l = _window(torch, ops, lambda: lsh_delta_join(
+            ing_index, base_size=base, max_pairs=cfg.max_pairs, n_shards=n,
+            devices=[dev] * n))
+        count(l)
+        log(f"[mapreduce] delta join of the {INGEST_ROWS} ingested rows, "
+            f"{n} shards: {time.perf_counter() - t0:.3f} s, "
+            f"{deltas[n].n_candidates} pairs; K5 launches "
+            f"{l['upper_pairs']}")
+        if not np.array_equal(deltas[n].pairs, deltas[1].pairs):
+            raise AssertionError(f"the {n}-shard delta join differs from "
+                                 f"the one-shard one")
+    pairs = deltas[1].pairs
+    if not np.array_equal(pairs, ing.join.pairs):
+        raise AssertionError("the delta join differs from the ingest's")
+    one = ing.scored        # [allpairs]' ingest scored them on one device
+    t1 = time.perf_counter()
+    four, l = _window(torch, ops, lambda: _recording(
+        ops, record, lambda: score_pairs(ids, lens, pairs, cfg.wave,
+                                         devices=[dev] * 4)))
+    t2 = time.perf_counter()
+    count(l)
+    for what in ("scores", "kept"):
+        if not np.array_equal(getattr(four, what), getattr(one, what)):
+            raise AssertionError(f"waves split over 4 devices: {what} "
+                                 f"differ from one device's")
+    for name in ("ungapped_scores", "wave_scores_linear"):
+        if l[name] <= 0:
+            raise AssertionError(f"the split waves never launched {name}")
+    log(f"[mapreduce] the {len(pairs)} delta pairs scored (prefilter K4, "
+        f"then K3 on {int(one.kept.sum())} survivors): one device (the "
+        f"ingest's run) {one.n_waves} waves; split over 4 devices "
+        f"{four.n_waves} waves, {t2 - t1:.3f} s; scores and kept equal; "
+        f"launches {json.dumps({k: v for k, v in l.items() if v})}")
+    surv = pairs[one.kept]
+    rcfg = replace(cfg.wave, prefilter=False, dp_kernel="rowwave")
+    t0 = time.perf_counter()
+    rw4, l = _window(torch, ops, lambda: _recording(
+        ops, record, lambda: score_pairs(ids, lens, surv, rcfg,
+                                         devices=[dev] * 4)))
+    count(l)
+    if not np.array_equal(rw4.scores, one.scores[one.kept]):
+        raise AssertionError("the split row wave differs from one device's "
+                             "wavefront")
+    if l["sw_rowwave"] <= 0:
+        raise AssertionError("the split row wave never launched sw_rowwave")
+    log(f"[mapreduce] row wave (K7) over the survivors, split over 4 "
+        f"devices: {rw4.n_waves} waves, {time.perf_counter() - t0:.3f} s, "
+        f"scores equal to one device's wavefront; K7 launches "
+        f"{l['sw_rowwave']}")
+    del deltas, four, rw4
+
+    # the Signature Processor at [search]'s scale: map, shuffle, reduce
+    q_sigs, r_sigs = search["q_sigs"], search["r_sigs"]
+    f, d = search["f"], search["d"]
+    Nq, Nr = q_sigs.shape[0], r_sigs.shape[0]
+    flip = search["flip_keys"].to(dev)
+    masks = flip_masks(f, d)[:, 0].astype(np.int64)
+    q_dev, r_dev = q_sigs.to(dev), r_sigs.to(dev)
+    for n in MR_SHARDS:
+        qs, qid = _padded_rows(q_sigs, torch.arange(Nq, dtype=torch.int32),
+                               n)
+        rs, rid = _padded_rows(r_sigs, torch.arange(Nr, dtype=torch.int32),
+                               n)
+        qk = np.where(qid.numpy() >= 0, qs[:, 0].numpy().view(np.uint32),
+                      -1).astype(np.int64)
+        rk = np.where(rid.numpy() >= 0, rs[:, 0].numpy().view(np.uint32),
+                      -1).astype(np.int64)
+        mcfg = mr.MapReduceConfig(n_shards=n)
+        routes = _route_counts(qk, rk, masks, n, mcfg.n_salt)
+        mcfg = replace(mcfg, shuffle_capacity=int(routes.max()),
+                       max_pairs_per_shard=1 << 16)
+        args = [x.to(dev) for x in (qs, rs, qid, rid)]
+        calls = []
+        while True:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = mr.distributed_flip_join(*args, f=f, d=d, cfg=mcfg,
+                                           devices=[dev] * n)
+            torch.cuda.synchronize()
+            calls.append(time.perf_counter() - t0)
+            got, counts, dropped = out
+            need = int(counts.max())
+            if need <= mcfg.max_pairs_per_shard:
+                break
+            mcfg = replace(mcfg, max_pairs_per_shard=next_pow2(need))
+        if int(dropped.sum()) != 0:
+            raise AssertionError(f"distributed_flip_join, {n} shards: "
+                                 f"{dropped.tolist()} records dropped")
+        p = got[got[:, 0] >= 0].long()
+        keep = hamming_distance(q_dev[p[:, 0]], r_dev[p[:, 1]]) <= d
+        keys = torch.unique(p[keep, 0] * Nr + p[keep, 1])
+        if not torch.equal(keys, flip):
+            raise AssertionError(f"distributed_flip_join, {n} shards: "
+                                 f"{len(keys)} pairs within d, the flip "
+                                 f"join {len(flip)}")
+        hot = 0
+        for s in range(n):      # the keys the map phase salted, per shard
+            k, _ = mr._map_records(
+                *(x.reshape((n, -1) + tuple(x.shape[1:]))[s:s + 1]
+                  .to(dev) for x in (qs, rs, qid.long(), rid.long())),
+                torch.from_numpy(masks).to(dev),
+                replace(mcfg, salting=False))
+            isq = torch.zeros_like(k, dtype=torch.bool)
+            isq[:, :qs.shape[0] // n] = True
+            _, hmask = mr.salt_hot_keys(k, hot_threshold=mcfg.hot_threshold,
+                                        n_salt=mcfg.n_salt, is_query=isq)
+            hot += int(torch.unique(
+                k[hmask & ~isq & (k != mr.EMPTY)]).numel())
+        log(f"[mapreduce] distributed_flip_join, {Nq} queries x {Nr} refs, "
+            f"f={f}, d={d}, {n} shards on the card: "
+            f"{len(calls)} call(s) of {', '.join(f'{c:.3f}' for c in calls)}"
+            f" s; shuffle_capacity {mcfg.shuffle_capacity} (the host's "
+            f"largest (src, dst) count), max_pairs_per_shard "
+            f"{mcfg.max_pairs_per_shard}; counts {counts.tolist()}, dropped "
+            f"0; {len(p)} pairs, {int(keep.sum())} within d, "
+            f"{len(keys)} distinct == [search]'s flip join; "
+            f"{hot} hot reference keys salted")
+        del args, out, got, p, keys
+
+    # the ring sweep over 512 homolog fragments and 512 decoys
+    sel = torch.cat([torch.arange(RING_QUERIES),
+                     search["n_hom"] + torch.arange(RING_QUERIES)])
+    in_sel = torch.zeros(Nq, dtype=torch.bool, device=dev)
+    in_sel[sel.to(dev)] = True
+    want = flip[in_sel[flip // Nr]]
+    for n in MR_SHARDS:
+        rs, rid = _padded_rows(r_sigs, torch.arange(Nr, dtype=torch.int32),
+                               n)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (rp, rc), l = _window(torch, ops, lambda: _recording(
+            ops, record if n == 4 else {}, lambda: mr.ring_sweep(
+                q_dev[sel.to(dev)], rs.to(dev), d=d, devices=[dev] * n,
+                max_pairs_per_shard=next_pow2(max(len(want), 1)),
+                q_ids=sel.to(torch.int32).to(dev), r_ids=rid.to(dev))))
+        dt = time.perf_counter() - t0
+        count(l)
+        p = rp[rp[:, 0] >= 0].long()
+        keys = torch.unique(p[:, 0] * Nr + p[:, 1])
+        if not (torch.equal(keys, want) and int(rc.sum()) == len(want)):
+            raise AssertionError(f"ring_sweep, {n} shards: {len(keys)} "
+                                 f"pairs, the flip join {len(want)}")
+        if l["hamming_dist"] <= 0:
+            raise AssertionError("the ring sweep never launched "
+                                 "hamming_dist")
+        log(f"[mapreduce] ring_sweep, {len(sel)} queries x {Nr} refs, {n} "
+            f"shards: {dt:.3f} s, {len(keys)} pairs == the flip join's on "
+            f"those queries; K2 launches {l['hamming_dist']} "
+            f"({n} hops x {n} shards)")
+
+    # the all-pairs CLI at 4 shards and at 1: the same arrays; the
+    # 4-shard run's metrics snapshot merged into the 1-shard run's
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        outs = {}
+        for n in (4, 1):
+            extra = (["--metrics-out", str(tmp / "w.json")] if n == 4 else
+                     ["--metrics-merge", str(tmp / "w.json"),
+                      "--metrics-out", str(tmp / "m.prom")])
+            out = _run_cli(MR_CLI + ["--shards", str(n), "--out",
+                                     str(tmp / f"{n}.npz"), *extra], log,
+                           f"allpairs --shards {n}", cli="allpairs",
+                           tag="[mapreduce]")
+            outs[n] = np.load(tmp / f"{n}.npz")
+            for want_line in ("[batch]", "[ingest]", "[truth]", "[metrics]"):
+                if want_line not in out:
+                    raise AssertionError(f"allpairs --shards {n}: no "
+                                         f"{want_line} line")
+        for key in outs[1].files:
+            if not np.array_equal(outs[4][key], outs[1][key]):
+                raise AssertionError(f"allpairs CLI: --shards 4 and 1 "
+                                     f"differ in {key}")
+        snap = json.loads((tmp / "w.json").read_text())
+        if "families" not in snap or not (tmp / "m.prom").exists():
+            raise AssertionError("allpairs CLI: metrics not written")
+        log(f"[mapreduce] allpairs CLI: --shards 4 and --shards 1 write "
+            f"the same arrays ({', '.join(sorted(outs[1].files))}; "
+            f"{len(outs[1]['pairs'])} pairs); the 4-shard run's snapshot "
+            f"({len(snap['families'])} families) merged and rendered")
+    log(f"[mapreduce] phase {time.perf_counter() - t_phase:.1f} s; "
+        f"launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    return launches, record
 
 
 def _bounds(name, args, kw):
@@ -2417,6 +2759,24 @@ def phase_small(torch, dev, log):
             f"{label}: card == CPU twins ({a.join.n_candidates} pairs, "
             f"{a.families.n_families} families; pairs, scores, kept, PID "
             f"and labels)")
+        # 4 shards on one device stack: the joins sharded, the score
+        # waves split 4 ways; the same outputs as one shard
+        for where in (dev, "cpu"):
+            sh = all_pairs_search(c["ids"], c["lens"], replace(
+                cfg, n_shards=4, devices=(where,) * 4))
+            for what, x, y in (("pairs", sh.pairs, b.pairs),
+                               ("scores", sh.scored.scores, b.scored.scores),
+                               ("kept", sh.scored.kept, b.scored.kept),
+                               ("pid", sh.scored.pid, b.scored.pid),
+                               ("labels", sh.labels, b.labels)):
+                if (x is None) != (y is None) or (
+                        x is not None and not np.array_equal(x, y)):
+                    raise AssertionError(f"all_pairs_search {label}, 4 "
+                                         f"shards on {where}: {what} "
+                                         f"differ from one shard's")
+        log(f"[small] all_pairs_search, {label}, n_shards=4 with "
+            f"devices=[device] * 4 on the card and on the CPU: the same "
+            f"outputs as one shard")
 
 
 def main() -> int:
@@ -2459,8 +2819,8 @@ def main() -> int:
         torch, ops, lambda: phase_serve(torch, ops, dev, log))
     log(f"[main] kernel launches on the serving path: "
         f"{json.dumps(serve_l)}")
-    search_l, emission = phase_search(torch, ops, dev, index, serve_data,
-                                      serve_probe, log)
+    search_l, emission, mr_data = phase_search(
+        torch, ops, dev, index, serve_data, serve_probe, log)
     log(f"[main] kernel launches on the dense join's search_pairs (K6's "
         f"path): {json.dumps(search_l)}")
     # the serving tier records into dicts of its own (K7's first launch
@@ -2510,13 +2870,17 @@ def main() -> int:
                                  f"path: {missing}")
     log(f"[main] [persist] {json.dumps(persist)}; [quality] "
         f"{json.dumps(quality)}")
-    index, res, corpus, pair_l, rowwave_l, full, real, stages = \
-        phase_allpairs(torch, ops, dev, log)
+    (index, res, corpus, pair_l, rowwave_l, full, real, stages,
+     ing_index, ing) = phase_allpairs(torch, ops, dev, log)
     recorded, ops.RECORDED = ops.RECORDED, None
     phase_allpairs_cpu_join(index, res, log)
-    del index, res
+    mr_l, mr_rec = phase_mapreduce(torch, ops, dev, index, res, ing_index,
+                                   ing, corpus, mr_data, log)
+    del index, res, ing_index, ing, mr_data
     phase_join_routes(torch, corpus, dev, log)
     del corpus
+    mr = _replay_tier(torch, (("mr", mr_rec, MR_REPLAYED),), log)
+    del mr_rec
     # each kernel's count from its own path: K1 the matmul build, K2 and
     # K3 serving, K6 the dense join, K4 and K5 the timed all_pairs_search,
     # K7 the row wave
@@ -2553,6 +2917,9 @@ def main() -> int:
             row["shard_launches"] = shard_l[row["name"]]
             row["fleet_launches"] = fleet_l[row["name"]]
         row.update(tier.get(row["name"], {}))
+        if row["name"] in MR_REPLAYED:
+            row["mr_launches"] = mr_l[row["name"]]
+            row.update(mr.get(row["name"], {}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -13,6 +13,11 @@ delta-joins only the pairs touching them, scores those, and unions the
 surviving edges into a :class:`~repro_torch.allpairs.graph.FamilyForest`;
 the labels equal a from-scratch :func:`all_pairs_search` of the grown
 corpus.
+
+Sharding: ``AllPairsConfig.n_shards`` lays the joins' buckets out over
+shards, one on each of ``AllPairsConfig.devices`` (default: all on the
+index's device), and the score waves split over the same devices; every
+result is the same for every shard count.
 """
 from __future__ import annotations
 
@@ -34,7 +39,15 @@ class AllPairsConfig:
     lsh: LSHConfig = field(default_factory=lambda: LSHConfig(k=3, T=13, f=32,
                                                              d=1))
     bands: int | None = None     # index bands (default: d+1)
-    n_shards: int = 1            # > 1: sharding, not ported yet (raises)
+    n_shards: int = 1            # bucket shards for the self-join and the
+                                 # delta join (each shard emits its own
+                                 # buckets' pairs); the arrays are the same
+                                 # for every n_shards
+    devices: tuple | None = None  # one torch device per shard, repeats
+                                 # allowed (default: the index's device);
+                                 # the score and prefilter waves split
+                                 # over them too, in place of
+                                 # wave.n_devices
     hamming_filter: bool = True  # exact-filter candidates at Hamming <= d
     wave: WaveConfig = field(default_factory=lambda: WaveConfig(with_pid=True))
     min_pid: float = 50.0        # family edge threshold (percent identity)
@@ -89,12 +102,15 @@ def all_pairs_search(ids, lens, cfg: AllPairsConfig | None = None,
                      device=None) -> AllPairsResult:
     """Corpus in, protein families out.
 
-    Runs on ``device`` (the card unless the caller names another), or on
-    the device of ``index=``, a prebuilt index over the same corpus.
+    Runs on ``device`` (the card unless the caller names another; with
+    ``cfg.devices``, the first of them), or on the device of ``index=``, a
+    prebuilt index over the same corpus.
     """
     cfg = cfg or AllPairsConfig()
     ids = np.asarray(ids, np.int8)
     lens = np.asarray(lens, np.int32)
+    if device is None and cfg.devices:
+        device = cfg.devices[0]
     if index is None:
         index = SignatureIndex.build(cfg.lsh, ids, lens, bands=cfg.bands,
                                      n_shards=cfg.n_shards, device=device)
@@ -104,8 +120,10 @@ def all_pairs_search(ids, lens, cfg: AllPairsConfig | None = None,
     pf, wave = _join_prefilter(cfg, ids, lens)
     join = lsh_self_join(index, d=cfg.lsh.d if cfg.hamming_filter else None,
                          max_pairs=cfg.max_pairs, n_shards=cfg.n_shards,
-                         prefilter=pf, join_impl=cfg.join_impl)
-    scored = score_pairs(ids, lens, join.pairs, wave, device=index.device)
+                         devices=cfg.devices, prefilter=pf,
+                         join_impl=cfg.join_impl)
+    scored = score_pairs(ids, lens, join.pairs, wave, device=index.device,
+                         devices=cfg.devices)
     if cfg.wave.with_pid:
         families = cluster_families(index.size, join.pairs, scored.pid,
                                     min_pid=cfg.min_pid)
@@ -172,8 +190,10 @@ def all_pairs_ingest(ids, lens, base_size: int,
     join = lsh_delta_join(index, base_size=base_size,
                           d=cfg.lsh.d if cfg.hamming_filter else None,
                           max_pairs=cfg.max_pairs, n_shards=cfg.n_shards,
-                          prefilter=pf, join_impl=cfg.join_impl)
-    scored = score_pairs(ids, lens, join.pairs, wave, device=index.device)
+                          devices=cfg.devices, prefilter=pf,
+                          join_impl=cfg.join_impl)
+    scored = score_pairs(ids, lens, join.pairs, wave, device=index.device,
+                         devices=cfg.devices)
     mask = _edge_mask(scored, cfg, join.pairs)
     forest.grow(index.size)
     forest.union_edges(join.pairs[mask])

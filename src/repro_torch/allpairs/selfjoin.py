@@ -1,9 +1,8 @@
 """LSH self-join: the corpus joined against itself via the index's buckets.
 
-The port of ``repro/allpairs/selfjoin.py`` for ``join_impl="spgemm"`` and
-one shard. Every bucket of the
-:class:`~repro_torch.index.store.SignatureIndex` emits its own
-within-bucket pairs (a bucket of m members gives m*(m-1)/2), pairs
+The port of ``repro/allpairs/selfjoin.py`` for ``join_impl="spgemm"``.
+Every bucket of the :class:`~repro_torch.index.store.SignatureIndex` emits
+its own within-bucket pairs (a bucket of m members gives m*(m-1)/2), pairs
 colliding in several bands are deduplicated, and the result is the exact
 set of LSH band collisions: upper-triangular (i < j), valid sequences
 only, sorted. With ``d=`` the exact Hamming filter keeps the
@@ -12,21 +11,35 @@ d-neighbourhood graph (the pigeonhole guarantee makes it complete).
 Emission is the strict upper triangle of AᵀA over the band-stacked bucket
 slabs (``index/spgemm.py``; kernel K5 on CUDA), sized from the
 partition's exact int64 pair totals, so it can never truncate; the pack
-(dedup, filter, compaction) runs on the slabs' device and the join pays
-one host sync, the count. Corpora up to ``PACKED_KEY_MAX_ID`` sequences
-take the keyed dup-free pack, larger ones the sort-dedup pack; both give
-the same arrays. The fused prefilter (:class:`JoinPrefilter`, kernel K4
-on CUDA) scores the deduplicated device pair buffer in place.
+(dedup, filter, compaction) runs on the lead device and the join pays
+one host sync, the count. Band-layout corpora up to ``PACKED_KEY_MAX_ID``
+sequences take the keyed dup-free pack, the rest (larger corpora, the
+flip layout) the sort-dedup pack; both give the same arrays. The fused
+prefilter (:class:`JoinPrefilter`, kernel K4 on CUDA) scores the
+deduplicated device pair buffer in place.
+
+Emission runs over the shard-owned bucket slabs of
+:class:`~repro_torch.index.partition.BucketPartition` (``mix32(key) %
+n_shards``, the MapReduce shuffle as a data layout). ``devices`` names one
+torch device per shard, repeats allowed (default: every shard on the
+index's device). Uniform per-shard demand on one device is one fused
+program over every (shard, band) slab; otherwise each shard emits at its
+own capacity (:func:`_shard_caps`, so one degenerate bucket inflates one
+shard's buffer) on its own device, or the shards sharing a device in one
+launch when their demand is uniform, and the buffers meet on the lead
+device (``.to()``) for one exact-sized pack (:func:`_pack_exact`).
+Buckets are never split across shards, so the result arrays are the same
+for every ``n_shards``.
 
 :func:`lsh_delta_join` emits only the pairs that touch rows appended after
 ``base_size``: each new segment's within-bucket pairs (K5) and its cross
-pairs against every earlier segment's matching buckets. Its union with
-the old pair set is exactly the from-scratch self-join of the grown
-corpus.
+pairs against every earlier segment's matching buckets, per shard under
+the segments' bucket partitions (matching keys own the same shard on
+both sides). Its union with the old pair set is exactly the from-scratch
+self-join of the grown corpus.
 
-Not ported: ``join_impl="legacy"`` (by decision, ROADMAP Queue 1 "Not
-ported") and ``n_shards > 1`` (the sharded all-pairs slice, Queue 1 item
-1); both raise.
+``join_impl="legacy"`` is not ported, by decision (ROADMAP Queue 1 "Not
+ported"); it raises.
 """
 from __future__ import annotations
 
@@ -42,12 +55,12 @@ from ..index.spgemm import (spgemm_cross_slab, spgemm_join_self,
                             spgemm_self_slab)
 from ..index.store import SignatureIndex
 from ..obs import span
-from ..util import next_pow2
+from ..util import group_devices, next_pow2, resolve_device
 
 JOIN_IMPLS = ("spgemm", "legacy")
 
 
-def _check_route(join_impl: str, n_shards: int) -> None:
+def _check_impl(join_impl: str) -> None:
     if join_impl not in JOIN_IMPLS:
         raise ValueError(f"unknown join_impl {join_impl!r} "
                          f"(expected one of {JOIN_IMPLS})")
@@ -55,11 +68,18 @@ def _check_route(join_impl: str, n_shards: int) -> None:
         raise NotImplementedError(
             "join_impl='legacy' is not ported by decision (ROADMAP Queue 1, "
             "'Not ported'): it gives the same arrays as join_impl='spgemm'")
-    if n_shards != 1:
-        raise NotImplementedError(
-            f"n_shards={n_shards}: sharded joins come with ROADMAP Queue 1 "
-            f"item 1 (the sharded all-pairs slice); the result arrays are "
-            f"the same for every n_shards")
+
+
+def _resolve_devices(index: SignatureIndex, n: int, devices):
+    """One torch device per shard (default: all on the index's device),
+    and the shards grouped by device in order of first appearance:
+    (devices, [(device, shard indices)])."""
+    devs = ([index.device] * n if devices is None
+            else [resolve_device(d) for d in devices])
+    if len(devs) != n:
+        raise ValueError(f"{len(devs)} devices for {n} shards: name one "
+                         f"device per partition shard")
+    return devs, group_devices(devs)
 
 
 def _shard_caps(part: BucketPartition) -> np.ndarray:
@@ -178,81 +198,143 @@ def _finish_pairs(pairs_dev: torch.Tensor, n_cand: int,
                          n_prefiltered=n_cand - len(kept))
 
 
+def _pack_exact(cand: torch.Tensor, index: SignatureIndex, d: int | None,
+                total: int, limit: int, max_grow: int, scope: str,
+                prefilter: JoinPrefilter | None) -> SelfJoinResult:
+    """The merged tail: the pack's output is sized at the exact emission
+    total (survivors <= emitted), so it never overflows. ``limit`` is the
+    reference's ceiling: it raises only when the deduplicated union must
+    grow past ``max_grow``."""
+    out_cap = next_pow2(max(1, min(total, limit)))
+    pairs, count = spgemm_pack(cand, index.device_sigs.to(cand.device),
+                               out_cap=out_cap, d=d)
+    n_cand = int(count)
+    if n_cand > limit:
+        _grow_overflow(scope, max_grow)
+    return _finish_pairs(pairs, n_cand, index, prefilter)
+
+
+def _merge(bufs, lead: torch.device) -> torch.Tensor:
+    """Ragged merge of per-shard (..., cap, 2) buffers on the lead device
+    (the pack dedups and sorts, so the order of the rows is free)."""
+    return torch.cat([b.reshape(-1, 2).to(lead) for b in bufs], dim=0)
+
+
 def lsh_self_join(index: SignatureIndex, *, d: int | None = None,
                   max_pairs: int = 1 << 16,
                   max_grow: int = 1 << 24,
                   n_shards: int | None = None,
+                  devices=None,
                   prefilter: JoinPrefilter | None = None,
                   join_impl: str = "spgemm") -> SelfJoinResult:
-    """All-pairs candidate generation over the indexed corpus, on the
-    index's device.
+    """All-pairs candidate generation over the indexed corpus.
 
     Emits every within-bucket pair of every band, deduplicates across
-    bands, and (``d=``) exact-filters by packed Hamming distance. The
-    output is sized at the exact emission total, so nothing grows or
-    retries; true demand (the largest per-band pair total, in int64)
-    beyond ``max_grow`` raises — never a silent cap. ``prefilter=`` fuses
-    the ungapped X-drop prefilter into the join (:class:`JoinPrefilter`).
+    bands and shards, and (``d=``) exact-filters by packed Hamming
+    distance. ``n_shards`` (default: the index's own) routes emission
+    through the bucket partition, one shard on each of ``devices``
+    (default: the index's device); the result arrays are the same for
+    every ``n_shards``. The output is sized at the exact emission total,
+    so nothing grows or retries; true demand (the largest per-(shard,
+    band) pair total, in int64) beyond ``max_grow`` raises — never a
+    silent cap. ``prefilter=`` fuses the ungapped X-drop prefilter into
+    the join (:class:`JoinPrefilter`).
     """
+    _check_impl(join_impl)
     n = int(n_shards) if n_shards is not None else index.n_shards
-    _check_route(join_impl, n)
-    part = index.partition(1)
+    devs, groups = _resolve_devices(index, n, devices)
+    part = index.partition(n)
     need = int(part.pair_totals.max()) if part.pair_totals.size else 0
     if need > max_grow:
         _grow_overflow("self-join", max_grow)
     if need == 0:       # every bucket is a singleton: no collisions at all
         return _empty(index.size)
     caps = _shard_caps(part)
-    with span("emission", cat="allpairs", shards=1, impl=join_impl,
-              need=need):
-        total = int(part.pair_totals.sum())
-        # the reference's ceiling: it only raises when the deduplicated
-        # union must grow past max_grow
-        limit = max(max_pairs, int(caps.max()), max_grow)
-        _, offs_s, ids_s = part.device_slabs()
-        offs_f = offs_s.reshape(-1, offs_s.shape[-1])
-        ids_f = ids_s.reshape(-1, ids_s.shape[-1])
-        out_cap = next_pow2(max(1, min(total, limit)))
-        if index.size <= PACKED_KEY_MAX_ID:
-            band_f = torch.arange(offs_s.shape[1]).repeat(offs_s.shape[0])
-            pairs, count = spgemm_join_self_keys(
-                offs_f, ids_f, band_f, index.device_band_keys,
-                index.device_sigs, cap=int(caps.max()), out_cap=out_cap,
-                d=d)
+    live = caps[caps > 0]
+    uniform = int(live.min()) == int(live.max())
+    total = int(part.pair_totals.sum())
+    # the reference's ceiling: it only raises when the deduplicated union
+    # must grow past max_grow
+    limit = max(max_pairs, int(caps.max()), max_grow)
+    lead = devs[0]
+    with span("emission", cat="allpairs", shards=n, impl=join_impl,
+              devices=len(groups), uniform=uniform, need=need):
+        if uniform and len(groups) == 1:
+            # one fused program: products + dedup + filter + compaction
+            _, offs_s, ids_s = (a.to(lead) for a in part.device_slabs())
+            offs_f = offs_s.reshape(-1, offs_s.shape[-1])
+            ids_f = ids_s.reshape(-1, ids_s.shape[-1])
+            sigs = index.device_sigs.to(lead)
+            out_cap = next_pow2(max(1, min(total, limit)))
+            if index.layout == "band" and index.size <= PACKED_KEY_MAX_ID:
+                # band layout: a pair repeats only across bands, and the
+                # band keys spot the repeats at emission
+                band_f = torch.arange(offs_s.shape[1]).repeat(
+                    offs_s.shape[0])
+                pairs, count = spgemm_join_self_keys(
+                    offs_f, ids_f, band_f, index.device_band_keys.to(lead),
+                    sigs, cap=int(caps.max()), out_cap=out_cap, d=d)
+            else:
+                pairs, count = spgemm_join_self(
+                    offs_f, ids_f, sigs, cap=int(caps.max()),
+                    out_cap=out_cap, d=d)
+            n_cand = int(count)
+            if n_cand > limit:
+                _grow_overflow("self-join", max_grow)
+            return _finish_pairs(pairs, n_cand, index, prefilter)
+        # several devices, or skewed demand: per-device (uniform) or
+        # per-shard (skewed) emission, merged on the lead device
+        _, offs_np, ids_np = part.host_slabs()
+        bufs = []
+        if uniform:
+            cap = int(caps.max())
+            for dev, members in groups:
+                offs = torch.from_numpy(
+                    offs_np[members].astype(np.int64)).to(dev)
+                ids = torch.from_numpy(ids_np[members]).to(dev)
+                bufs.append(spgemm_self_slab(_flat(offs), _flat(ids),
+                                             cap=cap))
         else:
-            pairs, count = spgemm_join_self(
-                offs_f, ids_f, index.device_sigs, cap=int(caps.max()),
-                out_cap=out_cap, d=d)
-        n_cand = int(count)
-        if n_cand > limit:
-            _grow_overflow("self-join", max_grow)
-        return _finish_pairs(pairs, n_cand, index, prefilter)
+            for s in range(n):
+                if caps[s] == 0:
+                    continue            # this shard's buckets are singletons
+                offs = torch.from_numpy(
+                    offs_np[s].astype(np.int64)).to(devs[s])
+                ids = torch.from_numpy(ids_np[s]).to(devs[s])
+                bufs.append(spgemm_self_slab(offs, ids, cap=int(caps[s])))
+        cand = _merge(bufs, lead)
+    return _pack_exact(cand, index, d, total, limit, max_grow, "self-join",
+                       prefilter)
 
 
-def _segment_stack(seg, device: torch.device):
+def _segment_stack(seg, n_shards: int, device: torch.device):
     """One sealed segment's delta-join arrays, cached on the segment
-    (sealed = immutable): its one-shard :class:`BucketPartition` (exact
-    per-band pair totals) and its pow2-padded band-stacked slabs on
-    ``device`` — keys int64 holding uint32, offsets int64, ids int32, each
-    (1, nb, X)."""
+    (sealed = immutable): its :class:`BucketPartition` per shard count
+    (exact per-(shard, band) pair totals) and, per (shard count, device),
+    its pow2-padded shard-stacked slabs there — keys int64 holding uint32,
+    offsets int64, ids int32, each (n_shards, nb, X)."""
     cache = getattr(seg, "_join_stacks", None)
     if cache is None:
         cache = seg._join_stacks = {}
-    cached = cache.get(device)
-    if cached is None:
-        part = BucketPartition(seg.csr, 1)
+    part = cache.get(n_shards)
+    if part is None:
+        part = cache[n_shards] = BucketPartition(seg.csr, n_shards)
+    slabs = cache.get((n_shards, device))
+    if slabs is None:
         keys_s, offs_s, ids_s = pad_slabs_pow2(*part.host_slabs())
-        slabs = (torch.from_numpy(keys_s.astype(np.int64)).to(device),
-                 torch.from_numpy(offs_s.astype(np.int64)).to(device),
-                 torch.from_numpy(ids_s).to(device))
-        cached = cache[device] = (part, slabs)
-    return cached
+        slabs = cache[(n_shards, device)] = (
+            torch.from_numpy(keys_s.astype(np.int64)).to(device),
+            torch.from_numpy(offs_s.astype(np.int64)).to(device),
+            torch.from_numpy(ids_s).to(device))
+    return part, slabs
 
 
 def _cross_totals(dpart: BucketPartition, rpart: BucketPartition
                   ) -> np.ndarray:
     """Exact int64 cross-pair totals per (shard, band) between a delta
-    partition's buckets and a resident partition's matching buckets."""
+    partition's buckets and a resident partition's matching buckets.
+    Ownership is keyed on the bucket key, so matching buckets land on the
+    same shard of both partitions."""
     out = np.zeros((dpart.n_shards, dpart.n_bands), np.int64)
     for s in range(dpart.n_shards):
         for b in range(dpart.n_bands):
@@ -281,16 +363,21 @@ def lsh_delta_join(index: SignatureIndex, *, base_size: int,
                    max_pairs: int = 1 << 16,
                    max_grow: int = 1 << 24,
                    n_shards: int | None = None,
+                   devices=None,
                    prefilter: JoinPrefilter | None = None,
                    join_impl: str = "spgemm") -> SelfJoinResult:
     """Incremental self-join: only the pairs touching rows >= ``base_size``
     (a segment boundary). For each new segment, its within-bucket pairs
     (upper mask, K5 on CUDA) and its cross pairs against the matching
     buckets of every earlier segment; resident-vs-resident pairs are never
-    re-enumerated. The result unions with the pre-ingest pair set to
-    exactly :func:`lsh_self_join` over the grown corpus."""
+    re-enumerated. Both masks run per shard under the segments' bucket
+    partitions, the shards sharing a device in one launch there
+    (``devices``: one per shard, default the index's device). The result
+    unions with the pre-ingest pair set to exactly :func:`lsh_self_join`
+    over the grown corpus, for every ``n_shards``."""
+    _check_impl(join_impl)
     n = int(n_shards) if n_shards is not None else index.n_shards
-    _check_route(join_impl, n)
+    devs, groups = _resolve_devices(index, n, devices)
     index.seal()
     segs = index.segments
     boundaries = [s.base for s in segs] + [index.size]
@@ -301,18 +388,23 @@ def lsh_delta_join(index: SignatureIndex, *, base_size: int,
     if base_size == index.size:     # nothing new
         return _empty(index.size)
     k = boundaries.index(base_size)
-    dev = index.device
 
     def part(i) -> BucketPartition:
-        return _segment_stack(segs[i], dev)[0]
+        return _segment_stack(segs[i], n, devs[0])[0]
 
-    def slabs(i):
-        return _segment_stack(segs[i], dev)[1]
+    def slabs(i, dev, members):
+        """Segment i's slabs of the shards ``members``, on ``dev``."""
+        stack = _segment_stack(segs[i], n, dev)[1]
+        if len(members) == n:
+            return stack
+        sel = torch.tensor(members, device=dev)
+        return tuple(a.index_select(0, sel) for a in stack)
 
     bufs = []
     total = 0
-    with span("delta_emission", cat="allpairs", shards=1, impl=join_impl,
-              new_segments=len(segs) - k, resident_segments=k):
+    with span("delta_emission", cat="allpairs", shards=n, impl=join_impl,
+              devices=len(groups), new_segments=len(segs) - k,
+              resident_segments=k):
         for s in range(k, len(segs)):
             within = part(s).pair_totals
             need_w = int(within.max(initial=0))
@@ -320,9 +412,10 @@ def lsh_delta_join(index: SignatureIndex, *, base_size: int,
                 _grow_overflow("delta join", max_grow)
             if need_w > 0:
                 total += int(within.sum())
-                _, offs_s, ids_s = slabs(s)
-                bufs.append(spgemm_self_slab(_flat(offs_s), _flat(ids_s),
-                                             cap=next_pow2(need_w)))
+                for dev, members in groups:
+                    _, offs_s, ids_s = slabs(s, dev, members)
+                    bufs.append(spgemm_self_slab(
+                        _flat(offs_s), _flat(ids_s), cap=next_pow2(need_w)))
             for r in range(s):      # every earlier segment is resident
                 totals = _cross_totals(part(s), part(r))
                 need_c = int(totals.max(initial=0))
@@ -331,20 +424,16 @@ def lsh_delta_join(index: SignatureIndex, *, base_size: int,
                 if need_c == 0:
                     continue
                 total += int(totals.sum())
-                bufs.append(spgemm_cross_slab(
-                    *(_flat(a) for a in (*slabs(s), *slabs(r))),
-                    cap=next_pow2(need_c)))
+                for dev, members in groups:
+                    bufs.append(spgemm_cross_slab(
+                        *(_flat(a) for a in (*slabs(s, dev, members),
+                                             *slabs(r, dev, members))),
+                        cap=next_pow2(need_c)))
         if not bufs:
             return _empty(index.size)
-        cand = torch.cat([b.reshape(-1, 2) for b in bufs], dim=0)
-    limit = max(max_pairs, max_grow)
-    out_cap = next_pow2(max(1, min(total, limit)))
-    pairs, count = spgemm_pack(cand, index.device_sigs, out_cap=out_cap,
-                               d=d)
-    n_cand = int(count)
-    if n_cand > limit:
-        _grow_overflow("delta join", max_grow)
-    return _finish_pairs(pairs, n_cand, index, prefilter)
+        cand = _merge(bufs, devs[0])
+    return _pack_exact(cand, index, d, total, max(max_pairs, max_grow),
+                       max_grow, "delta join", prefilter)
 
 
 def brute_force_collisions(index: SignatureIndex) -> set[tuple[int, int]]:

@@ -19,14 +19,20 @@ The port of ``repro/allpairs/tiles.py``. The plan is the reference's:
    survivors);
 5. **asynchronous drain** — torch launches return before the device
    finishes; a FIFO ring makes the host wait for a wave's scores only
-   when more than ``inflight`` waves are outstanding.
+   when more than ``inflight`` waves are outstanding;
+6. **multi-device waves** (``n_devices > 1``, or ``devices=``) — each
+   score or prefilter wave carries ``n_devices`` times the per-device
+   batch, and its (B,) pair-index vectors split into that many equal
+   blocks, one per device; the blocks bound for one device are scored
+   there in one launch, on a copy of the corpus uploaded once per
+   device. Pairs are independent, so the split is exact by
+   construction. The PID waves stay on one device, as in the reference.
 
 The reference's ``use_pallas``/``pallas_interpret`` have no meaning here
 (routing is by device), nor have its host-gather and per-wave-sync
 profiling switches (the device gather is the only gather; the spans time
-each wave's issue), and ``n_devices > 1`` comes with the sharded
-all-pairs slice (ROADMAP Queue 1 item 1). Scores (and PID, through the
-host traceback) come back aligned with the input pair order.
+each wave's issue). Scores (and PID, through the host traceback) come
+back aligned with the input pair order.
 """
 from __future__ import annotations
 
@@ -41,7 +47,7 @@ from ..align.smith_waterman import (dp_scores_block, sw_wave_pid,
                                     ungapped_xdrop_scores)
 from ..core.alphabet import PAD
 from ..obs import record as record_span
-from ..util import resolve_device
+from ..util import group_devices, resolve_device
 
 
 @dataclass(frozen=True)
@@ -52,7 +58,10 @@ class WaveConfig:
     max_wave_cells: int = 1 << 23  # B*Lq*Lr budget; shrinks B for long pairs
     inflight: int = 2            # waves in flight before the oldest
                                  # result is copied to the host
-    n_devices: int = 1           # > 1: sharding, not ported yet (raises)
+    n_devices: int = 1           # split each score/prefilter wave over the
+                                 # first n_devices CUDA devices (clamped to
+                                 # the card count; one device on the CPU);
+                                 # wave_batch is then per device
     dp_kernel: str = "wavefront"  # score-only DP: "wavefront" (K3) or
                                  # "rowwave" (K7, linear gaps). The PID
                                  # path always runs the row wave (its
@@ -132,14 +141,21 @@ class _DeviceCorpus:
         self.rows = torch.from_numpy(rows).to(device)
 
     def wave(self, pairs: np.ndarray, chunk: np.ndarray, B: int, Lq: int,
-             Lr: int):
+             Lr: int, cols: np.ndarray | None = None):
         """The (B, Lq) and (B, Lr) blocks of the pairs ``pairs[chunk]``,
-        padded to B with the all-PAD row."""
+        padded to B with the all-PAD row; with ``cols``, only those slots
+        of the padded wave (the blocks of a split bound here)."""
         pinned = self.rows.is_cuda
-        idx = torch.empty((2, B), dtype=torch.int64, pin_memory=pinned)
+        idx = torch.empty((2, B if cols is None else len(cols)),
+                          dtype=torch.int64, pin_memory=pinned)
         host = idx.numpy()
-        host.fill(self.n)
-        host[:, :len(chunk)] = pairs[chunk].T
+        if cols is None:
+            host.fill(self.n)
+            host[:, :len(chunk)] = pairs[chunk].T
+        else:
+            full = np.full((2, B), self.n, np.int64)
+            full[:, :len(chunk)] = pairs[chunk].T
+            host[:] = full[:, cols]
         if pinned:
             # a copy from pageable memory would wait for the whole stream;
             # from pinned memory it is queued behind the waves in flight
@@ -191,23 +207,52 @@ class _WaveStats:
                   "pid_wave": 0.0}
 
 
-def _iter_wave_chunks(sub, lens, cfg: WaveConfig, wave_batch: int):
+def _iter_wave_chunks(sub, lens, cfg: WaveConfig, wave_batch: int,
+                      ndev: int = 1):
     """Walk the dispatch plan, shrink the batch to the cell budget, and
     yield fixed-shape (chunk, B, Lq, Lr) work units (the last chunk of a
     bucket may be shorter than B; the dispatchers pad it). Shared by the
-    score and PID paths, so their wave shapes cannot diverge."""
+    score and PID paths, so their wave shapes cannot diverge. The batch
+    and the cell budget are per device: a wave split over ``ndev``
+    devices carries ndev times the pairs."""
     for idx, Lq, Lr in wave_plan(sub, lens, cfg):
-        B = max(1, min(wave_batch, cfg.max_wave_cells // (Lq * Lr)))
+        B = max(1, min(wave_batch, cfg.max_wave_cells // (Lq * Lr))) * ndev
         for s in range(0, len(idx), B):
             yield idx[s:s + B], B, Lq, Lr
 
 
-def _run_score_waves(lens, pairs, subset, cfg: WaveConfig, corpus, out,
+class _WaveDevices:
+    """Where a wave's blocks run: ``devices`` names one device per block
+    of the split; the blocks bound for one device go there as one launch,
+    on a copy of the corpus uploaded once per distinct device."""
+
+    def __init__(self, ids, lens, devices, quantum: int):
+        self.ndev = len(devices)
+        self.groups = [(d, np.array(ks)) for d, ks in group_devices(devices)]
+        self.corpus = {d: _DeviceCorpus(ids, lens, d, quantum)
+                       for d, _ in self.groups}
+        self.lead = self.corpus[devices[0]]
+
+    def split(self, sub, chunk, B: int, Lq: int, Lr: int):
+        """One wave's pair blocks per device: yields (the entries of
+        ``chunk`` it scores, (qm, rm) there). Each device's slots are
+        ascending, so its real pairs lead its rows."""
+        if len(self.groups) == 1:       # every block on one device
+            yield chunk, self.lead.wave(sub, chunk, B, Lq, Lr)
+            return
+        b = B // self.ndev
+        for dev, blocks in self.groups:
+            pos = (blocks[:, None] * b + np.arange(b)).ravel()
+            yield (chunk[pos[pos < len(chunk)]],
+                   self.corpus[dev].wave(sub, chunk, B, Lq, Lr, cols=pos))
+
+
+def _run_score_waves(lens, pairs, subset, cfg: WaveConfig, devs, out,
                      stats: _WaveStats, *, kind: str,
                      wave_batch: int) -> None:
     """Dispatch score-only waves (``kind``: "sw" | "ungapped") over
-    ``pairs[subset]``, writing results into ``out[subset[...]]`` through
-    the drain ring."""
+    ``pairs[subset]``, each split over ``devs`` (:class:`_WaveDevices`),
+    writing results into ``out[subset[...]]`` through the drain ring."""
     sub = pairs[subset]
 
     def sink(slots, host):
@@ -215,24 +260,25 @@ def _run_score_waves(lens, pairs, subset, cfg: WaveConfig, corpus, out,
 
     ring = _DrainRing(cfg.inflight, sink)
     key = "prefilter" if kind == "ungapped" else "dispatch"
-    for chunk, B, Lq, Lr in _iter_wave_chunks(sub, lens, cfg, wave_batch):
-        t0 = time.perf_counter()
-        qm, rm = corpus.wave(sub, chunk, B, Lq, Lr)
-        if kind == "ungapped":
-            res = ungapped_xdrop_scores(qm, rm, x=cfg.xdrop)
-        else:
-            res = dp_scores_block(qm, rm, dp_kernel=cfg.dp_kernel,
-                                  gap_mode=cfg.gap_mode,
-                                  gap_open=cfg.gap_open,
-                                  gap_extend=cfg.gap_extend)
-        t1 = time.perf_counter()
-        stats.t[key] += t1 - t0
-        # issue-side duration: device time hides in the drain
-        record_span("wave", t0, t1, cat="allpairs", kind=kind, B=B,
-                    Lq=Lq, Lr=Lr, n=len(chunk))
-        t0 = time.perf_counter()
-        ring.push(subset[chunk], res)
-        stats.t["drain"] += time.perf_counter() - t0
+    for chunk, B, Lq, Lr in _iter_wave_chunks(sub, lens, cfg, wave_batch,
+                                              devs.ndev):
+        for part, (qm, rm) in devs.split(sub, chunk, B, Lq, Lr):
+            t0 = time.perf_counter()
+            if kind == "ungapped":
+                res = ungapped_xdrop_scores(qm, rm, x=cfg.xdrop)
+            else:
+                res = dp_scores_block(qm, rm, dp_kernel=cfg.dp_kernel,
+                                      gap_mode=cfg.gap_mode,
+                                      gap_open=cfg.gap_open,
+                                      gap_extend=cfg.gap_extend)
+            t1 = time.perf_counter()
+            stats.t[key] += t1 - t0
+            # issue-side duration: device time hides in the drain
+            record_span("wave", t0, t1, cat="allpairs", kind=kind,
+                        B=qm.shape[0], Lq=Lq, Lr=Lr, n=len(part))
+            t0 = time.perf_counter()
+            ring.push(subset[part], res)
+            stats.t["drain"] += time.perf_counter() - t0
         stats.n_waves += 1
         stats.shapes.add((kind, B, Lq, Lr))
     t0 = time.perf_counter()
@@ -242,8 +288,8 @@ def _run_score_waves(lens, pairs, subset, cfg: WaveConfig, corpus, out,
 
 def _run_pid_waves(lens, pairs, subset, cfg: WaveConfig, corpus, scores,
                    pid, aln, stats: _WaveStats) -> None:
-    """PID waves: the DP matrices on the device, then the host traceback
-    (host-bound, so these waves drain synchronously)."""
+    """PID waves, on one device: the DP matrices there, then the host
+    traceback (host-bound, so these waves drain synchronously)."""
     sub = pairs[subset]
     for chunk, B, Lq, Lr in _iter_wave_chunks(sub, lens, cfg,
                                               cfg.wave_batch):
@@ -264,11 +310,32 @@ def _run_pid_waves(lens, pairs, subset, cfg: WaveConfig, corpus, scores,
         stats.shapes.add(("pid", B, Lq, Lr))
 
 
+def _wave_devices(cfg: WaveConfig, device, devices) -> list:
+    """The devices of the wave split: ``devices`` when given (repeats
+    allowed), else the first ``min(n_devices, card count)`` CUDA devices
+    when ``device`` is a card, else ``device`` alone."""
+    if devices is not None:
+        devs = [resolve_device(d) for d in devices]
+        if not devs:
+            raise ValueError("devices must name at least one device")
+        return devs
+    dev = resolve_device(device)
+    if dev.type == "cuda" and cfg.n_devices > 1:
+        n = max(1, min(cfg.n_devices, torch.cuda.device_count()))
+        return [torch.device("cuda", i) for i in range(n)]
+    return [dev]
+
+
 def score_pairs(ids: np.ndarray, lens: np.ndarray, pairs: np.ndarray,
                 cfg: WaveConfig | None = None, *,
-                device=None) -> PairScores:
+                device=None, devices=None) -> PairScores:
     """Score every (i, j) candidate pair with batched Smith-Waterman waves
     on ``device`` (the card unless the caller names another).
+
+    ``cfg.n_devices > 1`` splits each score and prefilter wave over the
+    first that many cards (:func:`_wave_devices`); an explicit
+    ``devices=`` list, repeats allowed, overrides it. The PID waves run
+    on the first of them.
 
     ids (N, L) int8 PAD-padded corpus, lens (N,), pairs (P, 2) int32.
     Returns scores (and PID when ``cfg.with_pid``) aligned with ``pairs``.
@@ -287,12 +354,7 @@ def score_pairs(ids: np.ndarray, lens: np.ndarray, pairs: np.ndarray,
         if cfg.with_pid:
             raise ValueError("with_pid needs gap_mode='linear' (the PID "
                              "traceback reads the linear-gap DP matrix)")
-    if cfg.n_devices > 1:
-        raise NotImplementedError(
-            f"n_devices={cfg.n_devices}: multi-device waves come with "
-            f"ROADMAP Queue 1 item 1 (the sharded all-pairs slice); scores "
-            f"do not depend on it")
-    dev = resolve_device(device)
+    devs = _wave_devices(cfg, device, devices)
     ids = np.asarray(ids, np.int8)
     pairs = np.asarray(pairs, np.int32)
     lens = np.asarray(lens, np.int32)
@@ -302,7 +364,7 @@ def score_pairs(ids: np.ndarray, lens: np.ndarray, pairs: np.ndarray,
     pid = np.zeros(P) if cfg.with_pid else None
     aln = np.zeros(P, np.int64) if cfg.with_pid else None
     stats = _WaveStats()
-    corpus = _DeviceCorpus(ids, lens, dev, cfg.len_quantum) if P else None
+    waves = _WaveDevices(ids, lens, devs, cfg.len_quantum) if P else None
 
     everything = np.arange(P)
     ungapped = None
@@ -310,7 +372,7 @@ def score_pairs(ids: np.ndarray, lens: np.ndarray, pairs: np.ndarray,
     subset = everything
     if cfg.prefilter and P:
         ungapped = np.zeros(P, np.int32)
-        _run_score_waves(lens, pairs, everything, cfg, corpus, ungapped,
+        _run_score_waves(lens, pairs, everything, cfg, waves, ungapped,
                          stats, kind="ungapped",
                          wave_batch=cfg.prefilter_batch)
         kept = ungapped >= cfg.prefilter_min
@@ -318,10 +380,10 @@ def score_pairs(ids: np.ndarray, lens: np.ndarray, pairs: np.ndarray,
         subset = np.flatnonzero(kept)
     if len(subset):
         if cfg.with_pid:
-            _run_pid_waves(lens, pairs, subset, cfg, corpus, scores, pid,
-                           aln, stats)
+            _run_pid_waves(lens, pairs, subset, cfg, waves.lead, scores,
+                           pid, aln, stats)
         else:
-            _run_score_waves(lens, pairs, subset, cfg, corpus, scores,
+            _run_score_waves(lens, pairs, subset, cfg, waves, scores,
                              stats, kind="sw",
                              wave_batch=cfg.wave_batch)
     record_span("score_pairs", t_all, time.perf_counter(), cat="allpairs",

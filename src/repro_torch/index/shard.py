@@ -56,7 +56,7 @@ import torch
 from ..core.hamming import hamming_distance
 from ..obs import span
 from ..obs.trace import record as record_span
-from ..util import resolve_device, u32_to_i32
+from ..util import group_devices, resolve_device, u32_to_i32
 from .partition import pad_slabs_pow2
 from .service import _dedup_candidates, _finalize_topk
 from .spgemm import match_buckets
@@ -105,10 +105,8 @@ class ShardedIndex:
         self.n_shards = len(self.devices)
         # shards grouped by device, in order of first appearance: each
         # group's slabs and carried buffers stack on a leading shard axis
-        groups: dict[torch.device, list[int]] = {}
-        for s, d in enumerate(self.devices):
-            groups.setdefault(d, []).append(s)
-        self._groups = [(d, tuple(m)) for d, m in groups.items()]
+        self._groups = [(d, tuple(m))
+                        for d, m in group_devices(self.devices)]
         # Serializes this replica's slab swaps AND the backing index's lazy
         # lifecycle mutations (seal/merge/partition) that refresh triggers.
         # Reentrant: refresh() takes it and also runs under it from

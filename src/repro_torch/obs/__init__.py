@@ -10,10 +10,14 @@ The port's copy of ``repro/obs``:
 * ``registry`` — fixed-log-bucket histograms that merge exactly across
   replicas, declared counters and gauges, one process-wide
   :data:`REGISTRY`, Prometheus text exposition and a JSON snapshot.
+* ``aggregate`` — the cross-process carrier for the registry: workers
+  ship :func:`registry_state` snapshots (the reference's JSON) and the
+  parent folds them in with :func:`merge_registry_state` (the all-pairs
+  CLI's ``--metrics-merge``).
 
-The reference's recompile sentinel (``obs/jit.py``) and cross-process
-aggregation (``obs/aggregate.py``) are not ported yet.
+The reference's recompile sentinel (``obs/jit.py``) is not ported yet.
 """
+from .aggregate import merge_registry_state, registry_state
 from .registry import (REGISTRY, Counter, Gauge, Histogram, Registry,
                        default_bounds)
 from .trace import (TRACER, Tracer, current_trace, disable, enable, instant,
@@ -23,5 +27,5 @@ __all__ = [
     "TRACER", "Tracer", "span", "instant", "record", "new_trace_id",
     "trace_context", "current_trace", "enable", "disable",
     "REGISTRY", "Registry", "Histogram", "Counter", "Gauge",
-    "default_bounds",
+    "default_bounds", "registry_state", "merge_registry_state",
 ]

@@ -1,6 +1,6 @@
-"""Small shared helpers: power-of-two quantization, device resolution,
-full-precision float32 products and the uint32 <-> int32 bit-pattern
-conversions."""
+"""Small shared helpers: power-of-two quantization, device resolution and
+grouping, full-precision float32 products and the uint32 <-> int32
+bit-pattern conversions."""
 from __future__ import annotations
 
 import contextlib
@@ -25,6 +25,16 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "plain torch path on the CPU")
     return dev
+
+
+def group_devices(devices) -> list:
+    """Shards grouped by device, in order of first appearance:
+    ``[(device, [shard indices])]``. The shards of one group stack on a
+    leading shard axis on their device."""
+    groups: dict[torch.device, list[int]] = {}
+    for s, d in enumerate(devices):
+        groups.setdefault(d, []).append(s)
+    return list(groups.items())
 
 
 @contextlib.contextmanager

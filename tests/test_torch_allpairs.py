@@ -24,8 +24,8 @@ from repro_torch.align.smith_waterman import dp_scores_block, sw_wave_pid
 from repro_torch.allpairs import (AllPairsConfig, FamilyForest, WaveConfig,
                                   all_pairs_ingest, all_pairs_search,
                                   brute_force_collisions, cluster_families,
-                                  forest_from_result, lsh_self_join,
-                                  score_pairs, union_find)
+                                  forest_from_result, lsh_delta_join,
+                                  lsh_self_join, score_pairs, union_find)
 from repro_torch.core.alphabet import PAD
 from repro_torch.core.pipeline import LSHConfig
 from repro_torch.data.synthetic import FamilyCorpusConfig, make_family_corpus
@@ -101,15 +101,32 @@ def test_selfjoin_empty_corpus():
 
 
 def test_unported_routes_raise(indexes):
+    """Only the legacy orchestration is refused (by decision); the
+    sharded routes are held to the reference in
+    test_torch_sharded_allpairs.py."""
     with pytest.raises(NotImplementedError, match="Queue 1, 'Not ported'"):
         lsh_self_join(indexes[1], join_impl="legacy")
-    slice_ = r"Queue 1 item 1 \(the sharded all-pairs slice\)"
-    with pytest.raises(NotImplementedError, match=slice_):
-        lsh_self_join(indexes[1], n_shards=2)
-    with pytest.raises(NotImplementedError, match=slice_):
-        score_pairs(np.zeros((2, 4), np.int8), np.full(2, 4, np.int32),
-                    np.array([[0, 1]], np.int32), WaveConfig(n_devices=2),
-                    device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1, 'Not ported'"):
+        lsh_delta_join(indexes[1], base_size=0, join_impl="legacy")
+
+
+@pytest.mark.parametrize("d", [None, 1])
+def test_self_join_flip_layout_matches_reference(d):
+    """A flip-layout index self-joins through the sort-dedup pack (the
+    keyed pack needs band keys, which only the band layout has), as the
+    reference does: 300 refs, seed 41."""
+    from repro.data import SyntheticProteinConfig, make_protein_sets
+    data = make_protein_sets(SyntheticProteinConfig(
+        n_refs=300, n_homolog_queries=4, n_decoy_queries=4,
+        ref_len_mean=90, ref_len_std=12, sub_rates=(0.04, 0.1), seed=41))
+    want = j_join(JIndex.build(JCfg(**KW), data["ref_ids"],
+                               data["ref_lens"], layout="flip"), d=d)
+    got = lsh_self_join(SignatureIndex.build(
+        LSHConfig(**KW), data["ref_ids"], data["ref_lens"], layout="flip",
+        device="cpu"), d=d)
+    assert got.n_candidates == {None: 1122, 1: 205}[d]
+    np.testing.assert_array_equal(got.pairs, want.pairs)
+    np.testing.assert_array_equal(got.indptr, want.indptr)
 
 
 # ---------------------------------------------------------------- SW waves

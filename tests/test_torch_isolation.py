@@ -25,10 +25,12 @@ def _port_modules():
 
 def test_port_modules_import_without_jax():
     mods = _port_modules()
-    assert "repro_torch.index.service" in mods and len(mods) >= 44
+    assert "repro_torch.index.service" in mods and len(mods) >= 47
     assert {"repro_torch.index.shard", "repro_torch.serve.engine",
             "repro_torch.serve.fleet", "repro_torch.faults.supervisor",
-            "repro_torch.launch.search_serve"} <= set(mods)
+            "repro_torch.launch.search_serve", "repro_torch.core.mapreduce",
+            "repro_torch.obs.aggregate",
+            "repro_torch.launch.allpairs"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules\n"
