@@ -149,6 +149,24 @@ Phases, any failure exits non-zero:
               these paths gave it, and card == CPU where the CPU twins
               finish in seconds (the 34,350 query against short refs; the
               corpus without the 34,350 chain).
+16. lm      — the LM serving path (``repro_torch.models``,
+              ``repro_torch.launch.serve``): yi-9b at full width and depth
+              (48 layers, d_model 4,096, 32/4 heads, d_ff 11,008, vocab
+              64,000) in bf16 with weights drawn on the card, serving a
+              batch of 8 prompts of 2,048 tokens and 32 greedy tokens:
+              prefill s, decode ms a step and tokens/s, peak memory. Then
+              each block family at full width in fp32, the same weights on
+              the card and the CPU (drawn on the host, carried over), the
+              same fed tokens, prefill and 8 decode steps: yi-9b (2
+              layers, 2 x 24), olmoe-1b-7b (2 layers, 2 x 24),
+              recurrentgemma-2b (one pattern repeat, 1 x 2,100, past its
+              2,048 window) and xlstm-1.3b (one pattern repeat, 1 x 1,100,
+              not a multiple of its 1,024 chunk; prefill + decode_step
+              also == a full forward over 1,101 tokens on the card); max
+              abs logit difference <= 2e-3 at every step. The LM path
+              launches none of K1-K7 (its counts are read around the
+              phase). Last, the recompile sentinel's builds by site are
+              logged, and any key built twice fails the run.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after it: serving (phase 2), each join's ``search_pairs``
@@ -237,6 +255,12 @@ MR_CLI = ["--n-families", "1024", "--family-size", "4",
 # the kernels [mapreduce] replays at the first inputs its paths gave them
 MR_REPLAYED = ("upper_pairs", "ungapped_scores", "wave_scores_linear",
                "sw_rowwave", "hamming_dist")
+LM_SERVE = ("yi-9b", 8, 2_048, 32)   # [lm]: arch, batch, prompt, tokens made
+# [lm] card == CPU at full width in fp32: arch, layers, batch, prompt
+LM_CHECKS = (("yi-9b", 2, 2, 24), ("olmoe-1b-7b", 2, 2, 24),
+             ("recurrentgemma-2b", 3, 1, 2_100), ("xlstm-1.3b", 8, 1, 1_100))
+LM_STEPS = 8            # [lm]: decode steps of the card == CPU check
+LM_TOL = 2e-3           # [lm]: max abs logit difference, card vs CPU
 
 
 def _dataset(name: str) -> dict:
@@ -2669,6 +2693,164 @@ def phase_wide(torch, ops, dev, log):
     return keys
 
 
+def _lm_steps(torch, model, toks):
+    """``prefill`` of ``toks[:, :-LM_STEPS]``, then one ``decode_step`` for
+    each of the last LM_STEPS tokens, fed from ``toks``: the logits of
+    every step as fp32 host arrays."""
+    from repro_torch.models import decode_step, init_cache, prefill
+    dev = model.device
+    t = torch.from_numpy(toks).to(dev)
+    B, n = toks.shape
+    P = n - LM_STEPS
+    cache = init_cache(model.cfg, B, n, dev)
+    logits, cache = prefill(model, t[:, :P], cache)
+    out = [logits.cpu().numpy()]
+    for s in range(LM_STEPS):
+        logits, cache = decode_step(model, cache, t[:, P + s:P + s + 1],
+                                    P + s)
+        out.append(logits.cpu().numpy())
+    return out
+
+
+def _lm_serve(torch, dev, smi, log):
+    """yi-9b at full width and depth in bf16, served through
+    ``repro_torch.launch.serve.generate``: prefill of a B x P prompt, then
+    greedy decode."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import init_params
+    arch, B, P, G = LM_SERVE
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    model = init_params(cfg, gen, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    # warm the matmul and allocator paths the timed run takes
+    generate(model, torch.randint(0, cfg.vocab_size, (B, 64), generator=gen,
+                                  device=dev), 2)
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                           device=dev)
+    ids, logits, prefill_s, decode_s = generate(model, prompt, G)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if ids.shape != (B, G) or not (0 <= ids.min() <= ids.max()
+                                   < cfg.vocab_size):
+        raise AssertionError(f"[lm] {arch}: generated ids {ids.shape} out "
+                             f"of shape or vocabulary")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"[lm] {arch}: non-finite logits")
+    steps = G - 1
+    out = {"arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "batch": B, "prompt": P, "generated": G,
+           "weights_gb": weights / 1e9, "init_s": init_s,
+           "prefill_s": prefill_s, "decode_ms_step": 1e3 * decode_s / steps,
+           "decode_tok_s": B * steps / decode_s,
+           "prefill_tok_s": B * P / prefill_s,
+           "peak_gib": peak / 2**30}
+    log(f"[lm] {arch} full width and depth ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}) in bf16, "
+        f"{weights / 1e9:.2f} GB of weights (drawn on the card in "
+        f"{init_s:.2f} s): batch {B} x prompt {P}, {G} tokens; prefill "
+        f"{prefill_s:.3f} s ({out['prefill_tok_s']:.0f} tok/s), decode "
+        f"{out['decode_ms_step']:.2f} ms a step ({out['decode_tok_s']:.1f} "
+        f"tok/s), peak memory {out['peak_gib']:.2f} GiB "
+        f"(max_memory_allocated); {smi}")
+    log(f"[lm] {arch} generated ids, first row: {ids[0].tolist()}")
+    del model, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm(torch, ops, dev, smi, log):
+    """The LM serving path (``repro_torch.models``, ``launch/serve.py``):
+    yi-9b served at full width, then each block family at full width in
+    fp32 on the card against the CPU, with the same weights (drawn on the
+    host, carried to the card) and the same fed tokens; xlstm's
+    prefill + decode also against a full forward over P + 1 tokens on the
+    card. The LM path reaches none of K1-K7."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    t_phase = time.perf_counter()
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("[lm] fp32 products must not run in TF32")
+    cfgs = [get_config(a).scaled(n_layers=n, dtype="float32")
+            for a, n, _, _ in LM_CHECKS]
+    # torch's CPU generator is sequential: the host models are drawn in
+    # threads of their own while the card serves yi-9b
+    pool = ThreadPoolExecutor(len(cfgs))
+    try:
+        hosts = [pool.submit(init_params, cfg,
+                             torch.Generator().manual_seed(i), "cpu")
+                 for i, cfg in enumerate(cfgs)]
+        (serve, checks), launches = _window(torch, ops, lambda: (
+            _lm_serve(torch, dev, smi, log),
+            _lm_card_vs_cpu(torch, dev, hosts, log)))
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    if any(launches.values()):
+        raise AssertionError(f"[lm] the LM path launched a kernel of the "
+                             f"port: {launches}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[lm] the LM path launches none of K1-K7 (counts "
+        f"{json.dumps(launches)}): its products are torch.matmul / "
+        f"torch.einsum, as the JAX package leaves them to XLA; phase "
+        f"{phase_s:.1f} s")
+    return {"serve": serve, "checks": checks, "phase_s": phase_s}
+
+
+def _lm_card_vs_cpu(torch, dev, hosts, log):
+    """Each host model and its copy on the card over the same fed tokens
+    (``LM_CHECKS``); the mLSTM archs also against a full forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM, forward
+    out = {}
+    for i, ((arch, n, B, P), fut) in enumerate(zip(LM_CHECKS, hosts)):
+        t0 = time.perf_counter()
+        host = fut.result()
+        cfg = host.cfg
+        card = LM(cfg, dev)
+        card.load_state_dict(host.state_dict())
+        toks = np.random.default_rng(100 + i).integers(
+            0, cfg.vocab_size, (B, P + LM_STEPS))
+        want = _lm_steps(torch, host, toks)
+        got = _lm_steps(torch, card, toks)
+        errs = [float(np.abs(g - w).max()) for g, w in zip(got, want)]
+        row = {"layers": n, "batch": B, "prompt": P, "max_abs_err": max(errs)}
+        if max(errs) > LM_TOL or not all(np.isfinite(g).all() for g in got):
+            raise AssertionError(f"[lm] {arch}: card != CPU, max abs logit "
+                                 f"difference per step {errs}")
+        msg = ""
+        if "mlstm" in cfg.block_pattern:
+            with torch.no_grad():
+                h = forward(card, torch.from_numpy(toks[:, :P + 1]).to(dev))[0]
+                full = (h[:, -1].float() @ card.head()).cpu().numpy()
+            row["full_forward_err"] = float(np.abs(full - got[1]).max())
+            if row["full_forward_err"] > LM_TOL:
+                raise AssertionError(
+                    f"[lm] {arch}: prefill({P}) + decode_step != forward "
+                    f"over {P + 1} tokens: {row['full_forward_err']}")
+            msg = (f"; prefill({P}) + decode_step == forward over {P + 1} "
+                   f"tokens on the card (chunk {cfg.attn_chunk}, max abs "
+                   f"{row['full_forward_err']:.2e})")
+        if cfg.window:
+            msg += f"; window {cfg.window} < prompt {P}: the ring wrapped"
+        row["s"] = time.perf_counter() - t0
+        log(f"[lm] {arch} full width (d_model {cfg.d_model}, {n} of "
+            f"{get_config(arch).n_layers} layers) fp32: card == CPU over prefill({B} x {P}) and "
+            f"{LM_STEPS} decode steps, max abs logit diff {max(errs):.2e} "
+            f"<= {LM_TOL}{msg}; {row['s']:.1f} s")
+        out[arch] = row
+        del host, card
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_small(torch, dev, log):
     """Card vs CPU (kernels vs twins) end to end on a small index."""
     from repro_torch.core.pipeline import LSHConfig
@@ -2791,6 +2973,7 @@ def main() -> int:
         return _fail("no CUDA device is available")
     sys.path.insert(0, str(src))
     from repro_torch.kernels import build, ops
+    from repro_torch.obs import SENTINEL
 
     def log(msg):
         print(msg, flush=True)
@@ -2920,6 +3103,13 @@ def main() -> int:
         if row["name"] in MR_REPLAYED:
             row["mr_launches"] = mr_l[row["name"]]
             row.update(mr.get(row["name"], {}))
+    lm = phase_lm(torch, ops, dev, smi, log)
+    log(f"[main] [lm] {json.dumps(lm)}")
+    log(f"[sentinel] builds by site: {json.dumps(SENTINEL.by_site())}")
+    rebuilt = SENTINEL.recompiled()
+    if rebuilt:
+        raise AssertionError(f"[sentinel] keys built more than once: "
+                             f"{rebuilt}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": rows}))

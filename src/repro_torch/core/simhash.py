@@ -22,7 +22,8 @@ import functools
 import numpy as np
 import torch
 
-from ..util import as_unsigned, full_float32_matmul
+from ..obs.jit import trace_sentinel
+from ..util import as_unsigned, canonical_device, full_float32_matmul
 from .alphabet import ALPHABET_SIZE, AMINO_ACIDS, BLOSUM62_PADDED
 from .neighbors import codebook, codebook_onehot, shingle_rows
 from .shingle import extract_shingles, shingle_ids
@@ -174,14 +175,20 @@ def table_rows(kind: str, k: int, T: int, f: int, scheme: str,
     return out
 
 
-@functools.lru_cache(maxsize=16)
 def _device_table(kind: str, k: int, T: int, f: int, scheme: str,
-                  device: torch.device) -> torch.Tensor:
+                  device) -> torch.Tensor:
     """A per-word table on ``device`` with one extra zero row at index W,
     where invalid shingles (id -1) are sent — one gather, no mask pass.
     The CPU's comes from the numpy functions; any other device builds its
     own (:func:`table_rows`: a k=4 table is ~6 TFLOP, a minute and more
-    of host time but well under a second on the card)."""
+    of host time but well under a second on the card). Built once per
+    device, whatever its spelling."""
+    return _build_table(kind, k, T, f, scheme, canonical_device(device))
+
+
+@functools.lru_cache(maxsize=16)
+@trace_sentinel("device_table")
+def _build_table(kind, k, T, f, scheme, device):
     if device.type == "cpu":
         t = torch.from_numpy(contribution_table(k, T, f, scheme)
                              if kind == "contrib"
@@ -191,11 +198,15 @@ def _device_table(kind: str, k: int, T: int, f: int, scheme: str,
     return torch.cat([t, t.new_zeros((1,) + t.shape[1:])])
 
 
-@functools.lru_cache(maxsize=8)
-def _device_siggen_operands(k: int, f: int, scheme: str,
-                            device: torch.device):
+def _device_siggen_operands(k: int, f: int, scheme: str, device):
     """K1's static operands on ``device``: one-hot codebook (W, D) int8
-    and hyperplanes (W, f) int8."""
+    and hyperplanes (W, f) int8, uploaded once per device."""
+    return _build_siggen_operands(k, f, scheme, canonical_device(device))
+
+
+@functools.lru_cache(maxsize=8)
+@trace_sentinel("siggen_operands")
+def _build_siggen_operands(k, f, scheme, device):
     return (torch.as_tensor(codebook_onehot(k), device=device),
             torch.as_tensor(hyperplanes(k, f, scheme), device=device))
 

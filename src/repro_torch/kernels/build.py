@@ -31,6 +31,8 @@ from pathlib import Path
 
 import torch
 
+from ..obs.jit import trace_sentinel
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("siggen", "hamming", "sw", "spgemm")
@@ -119,13 +121,19 @@ def resource_usage(name: str) -> dict[str, dict[str, int]]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded shared library of ``csrc/<name>.cu``, built if needed."""
+    """The loaded shared library of ``csrc/<name>.cu``, built if needed
+    and loaded once."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            build_all()
-            lib = _libs[name] = ctypes.CDLL(str(_target(name)))
+            lib = _libs[name] = _load(name)
         return lib
+
+
+@trace_sentinel("kernel_library")
+def _load(name: str) -> ctypes.CDLL:
+    build_all()
+    return ctypes.CDLL(str(_target(name)))
 
 
 def function(lib_name: str, fn_name: str, argtypes: list):

@@ -20,6 +20,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..obs.jit import trace_sentinel
+from ..util import canonical_device
 from . import build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -102,10 +104,16 @@ def rowwave_geometry(Lq: int, Lr: int) -> RowwaveGeometry:
                            smem_bytes=ppb * per_warp, scratch_per_pair=0)
 
 
-@functools.lru_cache(maxsize=8)
-def _table(device: torch.device, sentinel: bool = True) -> torch.Tensor:
+def _table(device, sentinel: bool = True) -> torch.Tensor:
     """BLOSUM62 (21*21,) int32 on ``device``: with the PAD row and column
-    at the sentinel (K3), or plain (K4 and K7 mask PAD themselves)."""
+    at the sentinel (K3), or plain (K4 and K7 mask PAD themselves).
+    Uploaded once per device and kind."""
+    return _build_table(canonical_device(device), sentinel)
+
+
+@functools.lru_cache(maxsize=8)
+@trace_sentinel("sw_table")
+def _build_table(device, sentinel):
     from ..align.gotoh import sentinel_table
     from ..core.alphabet import BLOSUM62_PADDED
     t = sentinel_table() if sentinel else BLOSUM62_PADDED.astype(np.int32)

@@ -1,3 +1,4 @@
 """Command-line entry points of the port (``python -m
-repro_torch.launch.<name>``): ``search_serve``, the serving CLI, and
-``allpairs``, the many-against-many clustering CLI."""
+repro_torch.launch.<name>``): ``search_serve``, the serving CLI,
+``allpairs``, the many-against-many clustering CLI, and ``serve``, the
+LM serving CLI (batched prefill + greedy decode)."""

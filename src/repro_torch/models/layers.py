@@ -1,0 +1,296 @@
+"""Shared transformer layers: norms, RoPE, chunked GQA attention, MLP, MoE.
+
+The port of ``repro/models/layers.py``, as plain functions on tensors with
+the reference's arithmetic step for step (dtypes, masking constants, the
+order of the online-softmax combine), so that a parameter dict carried
+over from the JAX package gives the same numbers.
+
+Attention is blockwise ("flash"-style online softmax over KV chunks, one
+loop over query chunks), so a long prefill never materializes an (S, S)
+score matrix. Its products are ``torch.einsum`` calls: the JAX package
+computes them outside any Pallas kernel, so no hand-written kernel is
+due, and no library attention is used.
+
+Not ported here: the reference's sequence-parallel decode over a mesh
+(``_flash_unnormalized``, ``seq_sharded_decode_attention``) and its
+sharding constraints.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30
+
+
+# ------------------------------------------------------------ norms
+def rmsnorm(x, scale, eps: float = 1e-6):
+    """x times the fp32 rsqrt of its mean square, cast back to x's dtype
+    before the scale (as the reference rounds it)."""
+    var = x.float().square().mean(-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def layernorm(x, scale, eps: float = 1e-5):
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, correction=0)   # jnp.var divides by n
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def norm(x, scale, kind: str):
+    return rmsnorm(x, scale) if kind == "rmsnorm" else layernorm(x, scale)
+
+
+# ------------------------------------------------------------ RoPE
+def rope(x, positions, theta: float):
+    """x: (B, S, H, Dh); positions: (S,) int. Standard rotary embedding in
+    fp32, cast back to x's dtype. Negative positions (empty cache slots)
+    are clamped — those slots are masked out of attention anyway."""
+    half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions.clamp_min(0).float()[:, None] * freqs       # (S, half)
+    cos = ang.cos()[None, :, None, :]
+    sin = ang.sin()[None, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------ attention
+def _attend_chunk(q, k, v, mask, scale):
+    """q (B,qc,Kh,G,Dh) k/v (B,kc,Kh,Dh) mask (B|1,qc,kc) -> (acc, m, l).
+    Scores are rounded to q's dtype before the fp32 scale; the
+    accumulator is in v's dtype."""
+    s = torch.einsum("bqkgd,bckd->bqkgc", q, k).float() * scale
+    s = torch.where(mask[:, :, None, None, :], s, NEG_INF)
+    m = s.amax(dim=-1)                                        # (B,qc,Kh,G)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bqkgc,bckd->bqkgd", p.to(v.dtype), v)
+    return acc, m, l
+
+
+def flash_attention(q, k, v, *, q_pos, k_pos, causal: bool,
+                    window: int | None, chunk: int,
+                    causal_skip: bool = False):
+    """Blockwise online-softmax attention with explicit position vectors.
+
+    q: (B, Sq, H, Dh); k, v: (B, Skv, Kh, Dh). GQA by a grouped einsum
+    (no repeated KV). q_pos (Sq,), k_pos (Skv,) are absolute positions;
+    key slots with k_pos < 0 are invalid (empty cache slots). Padded
+    query rows get position -10**9, padded key slots -1. A fully masked
+    chunk gives m = -1e30, which the combine's exp(m - m_new) removes.
+    Returns (B, Sq, H, Dh).
+
+    causal_skip: the triangular schedule — query block i scans KV blocks
+    0..i only. For causal self-attention the blocks it skips are fully
+    masked, and their combine factor is exactly 0, so both schedules give
+    the same numbers; the skip halves the work.
+    """
+    B, Sq, H, Dh = q.shape
+    Skv, Kh = k.shape[1], k.shape[2]
+    G = H // Kh
+    scale = 1.0 / math.sqrt(Dh)
+    qc, kc = min(chunk, Sq), min(chunk, Skv)
+    nq, nk = -(-Sq // qc), -(-Skv // kc)
+    qp = F.pad(q, (0, 0, 0, 0, 0, nq * qc - Sq)).reshape(B, nq, qc, Kh, G, Dh)
+    kp = F.pad(k, (0, 0, 0, 0, 0, nk * kc - Skv)).reshape(B, nk, kc, Kh, Dh)
+    vp = F.pad(v, (0, 0, 0, 0, 0, nk * kc - Skv)).reshape(B, nk, kc, Kh, Dh)
+    qpos = F.pad(q_pos, (0, nq * qc - Sq), value=-(10**9)).reshape(nq, qc)
+    kpos = F.pad(k_pos, (0, nk * kc - Skv), value=-1).reshape(nk, kc)
+    triangular = causal_skip and causal and window is None and nq > 1
+
+    outs = []
+    for i in range(nq):
+        qb, qpo = qp[:, i], qpos[i]
+        acc = torch.zeros((B, qc, Kh, G, Dh), dtype=q.dtype, device=q.device)
+        m = torch.full((B, qc, Kh, G), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, qc, Kh, G), dtype=torch.float32, device=q.device)
+        for j in range(i + 1 if triangular else nk):
+            kpo = kpos[j]
+            mask = (kpo >= 0)[None, None, :]
+            if causal:
+                mask = mask & (qpo[None, :, None] >= kpo[None, None, :])
+            if window is not None:
+                mask = mask & ((qpo[None, :, None] - kpo[None, None, :])
+                               < window)
+            a, m2, l2 = _attend_chunk(qb, kp[:, j], vp[:, j], mask, scale)
+            m_new = torch.maximum(m, m2)
+            c1 = torch.exp(m - m_new)
+            c2 = torch.exp(m2 - m_new)
+            acc = (acc * c1[..., None].to(acc.dtype)
+                   + a * c2[..., None].to(a.dtype))
+            l = l * c1 + l2 * c2
+            m = m_new
+        outs.append(acc / l.clamp_min(1e-30)[..., None].to(acc.dtype))
+    out = torch.stack(outs, dim=1).reshape(B, nq * qc, H, Dh)
+    return out[:, :Sq]
+
+
+def attention_block(x, p, cfg, *, positions, causal: bool,
+                    window: int | None, cache=None):
+    """Pre-norm GQA attention with an optional KV cache (decode).
+
+    p: dict(wq (d, H*hd), wk/wv (d, Kh*hd), wo_attn (H*hd, d), norm (d,)).
+    cache: None | dict(k (B, Smax, Kh, hd) UNROPED, v likewise, pos
+    (Smax,) absolute positions, -1 = empty). Windowed layers use a ring
+    buffer (Smax == window), global layers a linear one; K is roped at
+    use time from the stored positions, so ring overwrites stay correct.
+    The cache's tensors are updated IN PLACE (the reference returns new
+    arrays); the returned dict holds them. Returns (out, new_cache).
+    """
+    B, S, _ = x.shape
+    H, Kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    h = norm(x, p["norm"], cfg.norm_type)
+    q = (h @ p["wq"]).reshape(B, S, H, hd)
+    k = (h @ p["wk"]).reshape(B, S, Kh, hd)
+    v = (h @ p["wv"]).reshape(B, S, Kh, hd)
+    q = rope(q, positions, cfg.rope_theta)
+
+    if cache is None:
+        k = rope(k, positions, cfg.rope_theta)
+        out = flash_attention(q, k, v, q_pos=positions, k_pos=positions,
+                              causal=causal, window=window,
+                              chunk=cfg.attn_chunk,
+                              causal_skip=cfg.causal_skip)
+        new_cache = None
+    else:
+        ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
+        Smax = ck.shape[1]
+        if S == 1:
+            # Single-token decode: write-then-attend is exact (the slot
+            # written IS the current position; a ring overwrite only
+            # evicts pos - Smax, which the window predicate masks anyway).
+            _write(ck, cv, cpos, k, v, positions)
+            out = flash_attention(q, rope(ck, cpos, cfg.rope_theta), cv,
+                                  q_pos=positions, k_pos=cpos, causal=causal,
+                                  window=window, chunk=cfg.attn_chunk)
+        else:
+            # Chunked prefill: attend BEFORE writing (a ring write of a
+            # multi-token chunk would clobber keys that early queries of
+            # the chunk still need), over concat(cache, fresh); stale ring
+            # entries are masked by the window, empty slots by pos == -1.
+            pos_all = torch.cat([cpos, positions])
+            k_roped = rope(torch.cat([ck, k], dim=1), pos_all,
+                           cfg.rope_theta)
+            out = flash_attention(q, k_roped, torch.cat([cv, v], dim=1),
+                                  q_pos=positions, k_pos=pos_all,
+                                  causal=causal, window=window,
+                                  chunk=cfg.attn_chunk)
+            # Only the last Smax positions are written, so no slot is
+            # written twice: the reference's scatter writes every position
+            # and a ring slot more than once past the window, which the
+            # CPU resolves as last-write-wins but a CUDA index-put leaves
+            # in no defined order. On the CPU both give the same cache.
+            w = min(S, Smax)
+            _write(ck, cv, cpos, k[:, S - w:], v[:, S - w:],
+                   positions[S - w:])
+        new_cache = {"k": ck, "v": cv, "pos": cpos}
+    out = out.reshape(B, S, H * hd) @ p["wo_attn"]
+    return out, new_cache
+
+
+def _write(ck, cv, cpos, k, v, positions):
+    """Store unroped k, v and their positions at slots pos mod Smax (each
+    slot at most once)."""
+    slots = (positions % ck.shape[1]).long()
+    ck.index_copy_(1, slots, k)
+    cv.index_copy_(1, slots, v)
+    cpos.index_copy_(0, slots, positions.to(cpos.dtype))
+
+
+# ------------------------------------------------------------ MLP
+def _act(x, kind: str):
+    if kind == "silu":
+        return F.silu(x)
+    if kind == "gelu":
+        return F.gelu(x, approximate="tanh")   # jax.nn.gelu's default
+    if kind == "relu2":
+        r = F.relu(x)
+        return r * r
+    raise ValueError(kind)
+
+
+def mlp_block(x, p, cfg):
+    """Pre-norm MLP: gated (SwiGLU-style) or plain, activation per config."""
+    h = norm(x, p["norm"], cfg.norm_type)
+    u = h @ p["wi"]
+    if cfg.mlp_gated:
+        u = u * _act(h @ p["wg"], cfg.mlp_act)
+    else:
+        u = _act(u, cfg.mlp_act)
+    return u @ p["wo"]
+
+
+# ------------------------------------------------------------ MoE
+def top_k(x, k: int):
+    """The k largest entries of the last axis, ties broken toward the
+    lower index (``lax.top_k``'s order; ``torch.topk`` promises none):
+    a stable descending sort keeps equal entries in index order."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_block(x, p, cfg):
+    """Dropped-token top-k MoE with sort-based dispatch.
+
+    Routing and capacity are per routing group: per batch row, or the
+    whole batch when S == 1 (decode). Each (token, k) is ranked within its
+    expert's queue by a stable sort over expert ids; kept tokens go to
+    slot e·C + rank of a fixed (E·C + 1, d) buffer whose last row swallows
+    the capacity drops; the experts run on (G, E, C, d), and the weighted
+    outputs are summed back per token with ``index_add_`` (on CUDA its
+    float sum order is not fixed: the K terms of a token may add in
+    another order than on the CPU). Returns (out, aux_loss).
+    """
+    B, S, d = x.shape
+    E, K = cfg.n_experts, cfg.experts_per_token
+    groups, Tg = (1, B) if S == 1 else (B, S)
+    C = max(int(math.ceil(Tg / E * K * cfg.capacity_factor)), 4)
+    dev = x.device
+
+    h = norm(x, p["norm"], cfg.norm_type).reshape(groups, Tg, d)
+    probs = torch.softmax(h.float() @ p["router"].float(), dim=-1)
+    gate_vals, gate_idx = top_k(probs, K)                     # (G, Tg, K)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    e_flat = gate_idx.reshape(groups, Tg * K)
+    t_flat = torch.arange(Tg, device=dev).repeat_interleave(K)
+    w_flat = gate_vals.reshape(groups, Tg * K)
+    # rank within the expert's queue (stable sort by expert id)
+    e_s, order = torch.sort(e_flat, dim=-1, stable=True)
+    seg = torch.cat([torch.ones((groups, 1), dtype=torch.bool, device=dev),
+                     e_s[:, 1:] != e_s[:, :-1]], dim=1)
+    idx = torch.arange(Tg * K, device=dev).expand(groups, -1)
+    rank_s = idx - torch.cummax(torch.where(seg, idx, 0), dim=1).values
+    rank = torch.zeros_like(rank_s).scatter_(1, order, rank_s)
+    slot = torch.where(rank < C, e_flat * C + rank, E * C)    # drop row
+    # only the drop row is written more than once, and it is discarded
+    xb = h.new_zeros((groups, E * C + 1, d)).scatter_(
+        1, slot[..., None].expand(-1, -1, d), h[:, t_flat])
+    xe = xb[:, :E * C].reshape(groups, E, C, d)
+    me = probs.mean(dim=1)                                    # (G, E)
+    ce = torch.zeros((groups, E), dtype=torch.float32, device=dev).scatter_add_(
+        1, e_flat, torch.ones_like(w_flat)) / (Tg * K) * E
+
+    u = torch.einsum("gecd,edf->gecf", xe, p["ewi"])
+    if cfg.mlp_gated:
+        u = u * _act(torch.einsum("gecd,edf->gecf", xe, p["ewg"]),
+                     cfg.mlp_act)
+    else:
+        u = _act(u, cfg.mlp_act)
+    ye = torch.einsum("gecf,efd->gecd", u, p["ewo"])          # (G,E,C,d)
+
+    yb = torch.cat([ye.reshape(groups, E * C, d),
+                    ye.new_zeros((groups, 1, d))], dim=1)     # drop row = 0
+    y_rec = torch.gather(yb, 1, slot[..., None].expand(-1, -1, d)) \
+        * w_flat[..., None].to(ye.dtype)
+    tok = (t_flat + torch.arange(groups, device=dev)[:, None] * Tg).reshape(-1)
+    out = ye.new_zeros((groups * Tg, d)).index_add_(
+        0, tok, y_rec.reshape(-1, d))
+    aux = (me.mean(0) * ce.mean(0)).sum()
+    return out.reshape(B, S, d), aux

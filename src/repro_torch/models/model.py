@@ -1,0 +1,437 @@
+"""Model assembly: the decoder/encoder covering all 10 archs, serving half.
+
+The port of ``repro/models/model.py``: ``init_params``, ``init_cache``,
+``forward``, ``prefill`` and ``decode_step``. The reference scans over
+whole repeats of ``cfg.block_pattern`` with (G, ...) stacked parameters
+and applies the pattern's remainder unrolled; the port holds one module
+per layer in the same order — layer ``g·len(pattern) + i`` is the
+reference's ``blocks/b{i}`` at group g, and the layers after the
+``n_groups`` repeats are ``rem/r{i}``. :func:`params_from_reference`
+carries the reference's parameter tree over by that map.
+
+Each layer is a :class:`Block` holding a mixer (:class:`Attention`,
+:class:`RGLRU`, :class:`MLSTM` or :class:`SLSTM`) and an optional
+:class:`MLP` or :class:`MoE`, registered under the reference's keys
+(``layers.3.attn.wq``, ``layers.3.mlp.wi``), with the reference's
+parameter names and (in, out) layouts, so ``h @ self.wq`` mirrors
+``h @ p["wq"]``. The maths lives in the plain functions of ``layers.py``
+and ``recurrent.py``.
+
+The cache is a list with one entry per layer, with the reference's
+leaves: dict(k, v, pos) for attention (updated in place), dict(conv, h)
+for RG-LRU, (C, n, m) for mLSTM and (c, n, h, m) for sLSTM.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..util import resolve_device
+from .config import ModelConfig
+from .layers import attention_block, mlp_block, moe_block, norm
+from .recurrent import mlstm_block, rglru_block, slstm_block
+
+def torch_dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)    # "bfloat16" | "float32"
+
+
+# ------------------------------------------------------------ modules
+class _Sublayer(nn.Module):
+    """One sublayer's parameters under the reference's names. ``spec``
+    maps name -> (shape, dtype, init): init is ("normal", std) or
+    ("const", value), the reference's initializer for that leaf."""
+
+    key = ""
+
+    def __init__(self, spec: dict, device):
+        super().__init__()
+        self.spec = spec
+        for name, (shape, dtype, _init) in spec.items():
+            self.register_parameter(name, nn.Parameter(
+                torch.empty(shape, dtype=dtype, device=device)))
+
+    def tree(self) -> dict:
+        """The parameters as the reference's dict of this sublayer."""
+        return dict(self._parameters)
+
+
+def _scales(cfg: ModelConfig):
+    dt = torch_dtype(cfg)
+    out_scale = 1.0 / math.sqrt(2 * cfg.n_layers * max(cfg.d_ff, cfg.d_model))
+    return dt, out_scale
+
+
+def _w(shape, dtype, std=None):
+    """A normal leaf; the reference's default std is 1/sqrt(fan_in)."""
+    return (tuple(shape), dtype,
+            ("normal", std if std is not None else 1.0 / math.sqrt(shape[0])))
+
+
+def _const(shape, dtype, value):
+    return (tuple(shape), dtype, ("const", value))
+
+
+class Attention(_Sublayer):
+    """Global ('attn') or sliding-window ('local_attn') GQA attention."""
+
+    key = "attn"
+
+    def __init__(self, cfg: ModelConfig, kind: str, device):
+        dt, out_scale = _scales(cfg)
+        d, H, Kh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        super().__init__({
+            "norm": _const((d,), dt, 1.0),
+            "wq": _w((d, H * hd), dt), "wk": _w((d, Kh * hd), dt),
+            "wv": _w((d, Kh * hd), dt),
+            "wo_attn": _w((H * hd, d), dt, out_scale)}, device)
+        self.cfg = cfg
+        self.window = cfg.window if kind == "local_attn" else None
+
+    def forward(self, x, *, positions, cache=None):
+        return attention_block(x, self.tree(), self.cfg, positions=positions,
+                               causal=not self.cfg.is_encoder,
+                               window=self.window, cache=cache)
+
+
+class RGLRU(_Sublayer):
+    """Griffin's recurrent block."""
+
+    key = "rglru"
+
+    def __init__(self, cfg: ModelConfig, kind: str, device):
+        dt, out_scale = _scales(cfg)
+        d, dr, f32 = cfg.d_model, cfg.rnn_width or cfg.d_model, torch.float32
+        super().__init__({
+            "norm": _const((d,), dt, 1.0),
+            "w_in": _w((d, dr), dt), "w_gate": _w((d, dr), dt),
+            "conv_w": _w((cfg.conv_width, dr), dt, 0.1),
+            "wa": _w((dr, dr), f32), "ba": _const((dr,), f32, 0.0),
+            "wx": _w((dr, dr), f32), "bx": _const((dr,), f32, 0.0),
+            "lam": _const((dr,), f32, 0.5),
+            "w_out": _w((dr, d), dt, out_scale)}, device)
+        self.cfg = cfg
+
+    def forward(self, x, *, positions, cache=None):
+        return rglru_block(x, self.tree(), self.cfg, state=cache)
+
+
+class MLSTM(_Sublayer):
+    """xLSTM's matrix-memory block."""
+
+    key = "mlstm"
+
+    def __init__(self, cfg: ModelConfig, kind: str, device):
+        dt, out_scale = _scales(cfg)
+        d, H, hd = cfg.d_model, cfg.n_heads, cfg.hd
+        super().__init__({
+            "norm": _const((d,), dt, 1.0),
+            "wq": _w((d, H * hd), dt), "wk": _w((d, H * hd), dt),
+            "wv": _w((d, H * hd), dt),
+            "wi_gate": _w((d, H), dt), "wf_gate": _w((d, H), dt),
+            "wo_gate": _w((d, H * hd), dt),
+            "w_out": _w((H * hd, d), dt, out_scale)}, device)
+        self.cfg = cfg
+
+    def forward(self, x, *, positions, cache=None):
+        return mlstm_block(x, self.tree(), self.cfg, state=cache)
+
+
+class SLSTM(_Sublayer):
+    """xLSTM's scalar-memory block."""
+
+    key = "slstm"
+
+    def __init__(self, cfg: ModelConfig, kind: str, device):
+        dt, out_scale = _scales(cfg)
+        d, H, hd, f32 = cfg.d_model, cfg.n_heads, cfg.hd, torch.float32
+        r = 1.0 / math.sqrt(hd)
+        super().__init__({
+            "norm": _const((d,), dt, 1.0),
+            **{w: _w((d, H * hd), dt) for w in ("wz", "wi", "wf", "wo_g")},
+            **{w: _w((H, hd, hd), f32, r) for w in ("rz", "ri", "rf", "ro")},
+            "w_out": _w((H * hd, d), dt, out_scale)}, device)
+        self.cfg = cfg
+
+    def forward(self, x, *, positions, cache=None):
+        return slstm_block(x, self.tree(), self.cfg, state=cache)
+
+
+class MLP(_Sublayer):
+    key = "mlp"
+
+    def __init__(self, cfg: ModelConfig, device):
+        dt, out_scale = _scales(cfg)
+        d, ff = cfg.d_model, cfg.d_ff
+        spec = {"norm": _const((d,), dt, 1.0), "wi": _w((d, ff), dt),
+                "wo": _w((ff, d), dt, out_scale)}
+        if cfg.mlp_gated:
+            spec["wg"] = _w((d, ff), dt)
+        super().__init__(spec, device)
+        self.cfg = cfg
+
+    def forward(self, x):
+        return mlp_block(x, self.tree(), self.cfg)
+
+
+class MoE(_Sublayer):
+    key = "moe"
+
+    def __init__(self, cfg: ModelConfig, device):
+        dt, out_scale = _scales(cfg)
+        d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+        spec = {"norm": _const((d,), dt, 1.0),
+                "router": _w((d, E), torch.float32),
+                "ewi": _w((E, d, ff), dt, 1.0 / math.sqrt(d)),
+                "ewo": _w((E, ff, d), dt, out_scale)}
+        if cfg.mlp_gated:
+            spec["ewg"] = _w((E, d, ff), dt, 1.0 / math.sqrt(d))
+        super().__init__(spec, device)
+        self.cfg = cfg
+
+    def forward(self, x):
+        return moe_block(x, self.tree(), self.cfg)
+
+
+MIXERS = {"attn": Attention, "local_attn": Attention, "rglru": RGLRU,
+          "mlstm": MLSTM, "slstm": SLSTM}
+
+
+class Block(nn.Module):
+    """One layer: a mixer sublayer plus (optionally) an MLP or MoE one,
+    each registered under the reference's key."""
+
+    def __init__(self, kind: str, cfg: ModelConfig, device):
+        super().__init__()
+        if kind not in MIXERS:
+            raise ValueError(kind)
+        self.kind = kind
+        mixer = MIXERS[kind](cfg, kind, device)
+        self.mixer_key = mixer.key
+        self.add_module(mixer.key, mixer)
+        self.ffn_key = None
+        if cfg.d_ff > 0:
+            ffn = (MoE(cfg, device) if cfg.is_moe and mixer.key == "attn"
+                   else MLP(cfg, device))
+            self.ffn_key = ffn.key
+            self.add_module(ffn.key, ffn)
+
+    def sublayers(self):
+        keys = (self.mixer_key,) + ((self.ffn_key,) if self.ffn_key else ())
+        return [(k, getattr(self, k)) for k in keys]
+
+    def forward(self, x, *, positions, cache=None):
+        mix, new_c = getattr(self, self.mixer_key)(x, positions=positions,
+                                                   cache=cache)
+        x = x + mix
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if self.ffn_key == "moe":
+            y, aux = self.moe(x)
+            x = x + y
+        elif self.ffn_key == "mlp":
+            x = x + self.mlp(x)
+        return x, new_c, aux
+
+
+class LM(nn.Module):
+    """The model: embedding (fp32), ``n_layers`` blocks in the reference's
+    order, final norm, and the fp32 ``lm_head`` unless embeddings are tied.
+    Parameters are allocated uninitialised; :func:`init_params` or
+    :func:`params_from_reference` fills them."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        d, V = cfg.d_model, cfg.vocab_size
+        self.embedding = nn.Parameter(
+            torch.empty((V, d), dtype=torch.float32, device=dev))
+        self.final_norm = nn.Parameter(
+            torch.empty((d,), dtype=torch_dtype(cfg), device=dev))
+        self.lm_head = None if cfg.tie_embeddings else nn.Parameter(
+            torch.empty((d, V), dtype=torch.float32, device=dev))
+        self.layers = nn.ModuleList(
+            Block(layer_kind(cfg, i), cfg, dev) for i in range(cfg.n_layers))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embedding.device
+
+    def head(self) -> torch.Tensor:
+        """The (d, V) fp32 output projection."""
+        return self.embedding.T if self.lm_head is None else self.lm_head
+
+
+def layer_kind(cfg: ModelConfig, i: int) -> str:
+    """Layer i's block kind: the pattern cycles over the whole repeats, and
+    the remainder is the pattern's first ``n_remainder`` blocks."""
+    return cfg.block_pattern[i % len(cfg.block_pattern)]
+
+
+# ------------------------------------------------------------ init
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device=None) -> LM:
+    """A model with the reference's distributions and scales: each weight
+    normal × 1/sqrt(fan_in) (or its explicit scale: ``out_scale`` for the
+    output projections, 0.1 for the conv, 1/sqrt(d) or 1/sqrt(hd) for the
+    expert and recurrent matrices), the embedding normal × 0.02, norms 1,
+    RG-LRU biases 0 and ``lam = 0.5``; embedding and ``lm_head`` in fp32.
+    Draws come from ``generator`` on its own device (torch's numbers, not
+    the reference's), and are moved to ``device``."""
+    dev = resolve_device(device)
+    model = LM(cfg, dev)
+    gdev = generator.device
+
+    def fill(param, init):
+        kind, value = init
+        with torch.no_grad():
+            if kind == "const":
+                param.fill_(value)
+            else:
+                param.copy_(torch.randn(param.shape, generator=generator,
+                                        device=gdev) * value)
+
+    fill(model.embedding, ("normal", 0.02))
+    fill(model.final_norm, ("const", 1.0))
+    if model.lm_head is not None:
+        fill(model.lm_head, ("normal", 1.0 / math.sqrt(cfg.d_model)))
+    for block in model.layers:
+        for _key, sub in block.sublayers():
+            for name, (_shape, _dt, init) in sub.spec.items():
+                fill(getattr(sub, name), init)
+    return model
+
+
+def _tensor(a) -> torch.Tensor:
+    """A numpy array as a tensor; bfloat16 arrays (numpy has no such dtype
+    of its own) are carried by their bits."""
+    a = np.array(a)     # a writable copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def params_from_reference(tree: dict, cfg: ModelConfig, device=None) -> LM:
+    """The JAX package's parameter tree (numpy leaves) as the port's
+    :class:`LM`: ``blocks/b{i}`` leaves carry a leading (G, ...) axis and
+    give layers ``g·len(pattern) + i``; ``rem/r{i}`` gives layer
+    ``n_groups·len(pattern) + i``. Every leaf must match the port's shape
+    and dtype."""
+    dev = resolve_device(device)
+    model = LM(cfg, dev)
+
+    def put(param, a):
+        t = _tensor(a)
+        if t.shape != param.shape or t.dtype != param.dtype:
+            raise ValueError(f"leaf {tuple(t.shape)} {t.dtype} does not fit "
+                             f"{tuple(param.shape)} {param.dtype}")
+        with torch.no_grad():
+            param.copy_(t)
+
+    put(model.embedding, tree["embedding"])
+    put(model.final_norm, tree["final_norm"])
+    if model.lm_head is not None:
+        put(model.lm_head, tree["lm_head"])
+    n = len(cfg.block_pattern)
+    for i, layer in enumerate(model.layers):
+        g, b = divmod(i, n)
+        if g < cfg.n_groups:
+            src = tree["blocks"][f"b{b}"]
+        else:
+            src, g = tree["rem"][f"r{b}"], None
+        for key, sub in layer.sublayers():
+            for name, a in src[key].items():
+                put(getattr(sub, name), a if g is None else a[g])
+    return model
+
+
+# ------------------------------------------------------------ cache
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device=None) -> list:
+    """Decode cache, one entry per layer with the reference's leaves:
+    attention dict(k, v (B, Smax, Kh, hd) in the model dtype, pos (Smax,)
+    int32 = -1) with Smax = min(window or max_len, max_len); RG-LRU
+    dict(conv (B, W-1, Dr), h (B, Dr)) fp32; mLSTM (C, n, m) and sLSTM
+    (c, n, h, m) fp32 with m = -1e30."""
+    dev = resolve_device(device)
+    Kh, hd, H = cfg.n_kv_heads, cfg.hd, cfg.n_heads
+    dt, f32 = torch_dtype(cfg), torch.float32
+
+    def zeros(*shape, dtype=f32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def block_cache(kind: str):
+        if kind in ("attn", "local_attn"):
+            Smax = cfg.window if (kind == "local_attn" and cfg.window) \
+                else max_len
+            Smax = min(Smax, max_len)
+            return {"k": zeros(batch, Smax, Kh, hd, dtype=dt),
+                    "v": zeros(batch, Smax, Kh, hd, dtype=dt),
+                    "pos": torch.full((Smax,), -1, dtype=torch.int32,
+                                      device=dev)}
+        if kind == "rglru":
+            dr = cfg.rnn_width or cfg.d_model
+            return {"conv": zeros(batch, cfg.conv_width - 1, dr),
+                    "h": zeros(batch, dr)}
+        if kind == "mlstm":
+            return (zeros(batch, H, hd, hd), zeros(batch, H, hd),
+                    zeros(batch, H) - 1e30)
+        if kind == "slstm":
+            z = zeros(batch, H, hd)
+            return (z, z.clone(), z.clone(), z - 1e30)
+        raise ValueError(kind)
+
+    return [block_cache(layer_kind(cfg, i)) for i in range(cfg.n_layers)]
+
+
+# ------------------------------------------------------------ forward
+def forward(model: LM, inputs, *, positions=None, cache=None):
+    """Returns (hidden (B,S,d), new_cache, aux_loss).
+
+    inputs: int tokens (B, S) or float embeddings (B, S, d) (stub
+    frontends). cache: from :func:`init_cache` (positions required), or
+    None.
+    """
+    cfg = model.cfg
+    dt = torch_dtype(cfg)
+    if inputs.ndim == 2:
+        # gather, then cast: the reference casts the whole table first,
+        # which gives the same rows
+        x = model.embedding[inputs].to(dt)
+    else:
+        x = inputs.to(dt)
+    S = x.shape[1]
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_cache = None if cache is None else []
+    for i, layer in enumerate(model.layers):
+        x, nc, aux = layer(x, positions=positions,
+                           cache=None if cache is None else cache[i])
+        aux_total = aux_total + aux
+        if cache is not None:
+            new_cache.append(nc)
+    return norm(x, model.final_norm, cfg.norm_type), new_cache, aux_total
+
+
+# ------------------------------------------------------------ decode
+@torch.no_grad()
+def decode_step(model: LM, cache: list, tokens, pos):
+    """One decode step: tokens (B, 1) int, pos the absolute position (an
+    int or a 0-d tensor). Returns (logits (B, V) fp32, new_cache)."""
+    positions = torch.arange(1, dtype=torch.int32, device=tokens.device) + pos
+    hidden, new_cache, _ = forward(model, tokens, positions=positions,
+                                   cache=cache)
+    return hidden[:, -1].float() @ model.head(), new_cache
+
+
+@torch.no_grad()
+def prefill(model: LM, tokens, cache: list):
+    """Prefill the cache with a prompt (B, S); returns (last_logits, cache)."""
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=tokens.device)
+    hidden, new_cache, _ = forward(model, tokens, positions=positions,
+                                   cache=cache)
+    return hidden[:, -1].float() @ model.head(), new_cache

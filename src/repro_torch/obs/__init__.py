@@ -14,10 +14,14 @@ The port's copy of ``repro/obs``:
   ship :func:`registry_state` snapshots (the reference's JSON) and the
   parent folds them in with :func:`merge_registry_state` (the all-pairs
   CLI's ``--metrics-merge``).
-
-The reference's recompile sentinel (``obs/jit.py``) is not ported yet.
+* ``jit``      — the recompile sentinel: every cached builder (a kernel
+  library, a table uploaded to a device) records a build per (site,
+  key); a key built twice is a silent rebuild, and
+  ``SENTINEL.expect_no_compiles()`` turns "zero builds after warmup"
+  into an asserted invariant.
 """
 from .aggregate import merge_registry_state, registry_state
+from .jit import SENTINEL, CompileSentinel, trace_sentinel
 from .registry import (REGISTRY, Counter, Gauge, Histogram, Registry,
                        default_bounds)
 from .trace import (TRACER, Tracer, current_trace, disable, enable, instant,
@@ -28,4 +32,5 @@ __all__ = [
     "trace_context", "current_trace", "enable", "disable",
     "REGISTRY", "Registry", "Histogram", "Counter", "Gauge",
     "default_bounds", "registry_state", "merge_registry_state",
+    "SENTINEL", "CompileSentinel", "trace_sentinel",
 ]

@@ -27,6 +27,19 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def canonical_device(device) -> torch.device:
+    """One spelling per device, for cache keys: ``"cpu"``, ``"cpu:1"`` and
+    ``torch.device("cpu")`` are all ``cpu`` (a CPU tensor carries no
+    index), and ``"cuda"`` is ``cuda:<current device>``. Without this,
+    ``lru_cache`` holds one device under two keys and builds twice."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return torch.device("cpu")
+    if dev.index is None and dev.type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def group_devices(devices) -> list:
     """Shards grouped by device, in order of first appearance:
     ``[(device, [shard indices])]``. The shards of one group stack on a

@@ -25,12 +25,24 @@ def _port_modules():
 
 def test_port_modules_import_without_jax():
     mods = _port_modules()
-    assert "repro_torch.index.service" in mods and len(mods) >= 47
+    assert "repro_torch.index.service" in mods and len(mods) >= 72
     assert {"repro_torch.index.shard", "repro_torch.serve.engine",
             "repro_torch.serve.fleet", "repro_torch.faults.supervisor",
             "repro_torch.launch.search_serve", "repro_torch.core.mapreduce",
             "repro_torch.obs.aggregate",
-            "repro_torch.launch.allpairs"} <= set(mods)
+            "repro_torch.launch.allpairs", "repro_torch.obs.jit",
+            "repro_torch.models.config", "repro_torch.models.layers",
+            "repro_torch.models.recurrent", "repro_torch.models.model",
+            "repro_torch.launch.serve", "repro_torch.configs.yi_9b",
+            "repro_torch.configs.olmoe_1b_7b",
+            "repro_torch.configs.qwen3_moe_30b_a3b",
+            "repro_torch.configs.hubert_xlarge",
+            "repro_torch.configs.recurrentgemma_2b",
+            "repro_torch.configs.qwen2_vl_7b",
+            "repro_torch.configs.nemotron_4_15b",
+            "repro_torch.configs.granite_3_8b",
+            "repro_torch.configs.granite_34b",
+            "repro_torch.configs.xlstm_1_3b"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules\n"
