@@ -165,8 +165,31 @@ Phases, any failure exits non-zero:
               also == a full forward over 1,101 tokens on the card); max
               abs logit difference <= 2e-3 at every step. The LM path
               launches none of K1-K7 (its counts are read around the
-              phase). Last, the recompile sentinel's builds by site are
-              logged, and any key built twice fails the run.
+              phase).
+17. train   — LM training (``repro_torch.train``, ``checkpoint``,
+              ``data.lm_data``, ``launch.train``): yi-9b at full width
+              (d_model 4,096, 32/4 heads, d_ff 11,008, vocab 64,000), cut
+              to 8 of 48 layers (48 layers of AdamW state do not fit 80
+              GB), bf16 compute params under fp32 masters and moments,
+              remat, batch 8 x 2,048 from ``lm_batches`` in 2
+              microbatches: one warm step, then 3 timed steps (step s,
+              tokens/s, peak memory, losses, grad norm, lr; the first loss
+              within 2 of ln V, everything finite). Each block family at
+              full width in fp32 (the ``[lm]`` models: yi-9b 2 layers,
+              olmoe-1b-7b 2, recurrentgemma-2b 3, xlstm-1.3b 8) takes one
+              ``make_train_step`` step of 2 x 16 tokens in one microbatch
+              on the card and on the CPU from the same weights: loss
+              within 1e-4, each gradient leaf within 1e-3 of its max abs,
+              the masters within 1e-5 on all but 0.01% of the elements and
+              none beyond 2·lr. The training CLI (yi-9b smoke, 6 steps
+              of 8 x 32 tokens) in subprocesses with deterministic
+              algorithms: 6 steps straight equal, byte for byte, a
+              resume from their step-3 checkpoint, and its ``[dedup]``
+              count equals the CPU's. The CLI and the checks run side by
+              side; yi-9b trains last, with the card and the host to
+              itself. The path launches none of K1-K7. Last, the
+              recompile sentinel's builds by site are logged, and any
+              key built twice fails the run.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after it: serving (phase 2), each join's ``search_pairs``
@@ -177,8 +200,9 @@ phase 7, the K1 build (phase 8), phase 9's matmul build (K1 at k=4) and
 its scoring (K7, K3), and in phase 10 the timed ``all_pairs_search`` (the
 all-pairs main path), the row wave over the survivors (K7's path), the
 base join and the ingest, each on its own, in phase 11 each sharded
-join, split score, row wave and ring sweep, and in phase 15 each wide or
-long path. The launches of phases 6 and 11's CLI runs happen in their
+join, split score, row wave and ring sweep, in phase 15 each wide or
+long path, and phases 16 and 17 whole (no kernel may launch there).
+The launches of phases 6, 11 and 17's CLI runs happen in their
 processes and are not counted. K2's row also times the dense join's first
 emission tile. The kernel wrappers record their first inputs throughout
 phases 2-10, phases 4-5 and 9 each into a record of their own, and phase
@@ -261,6 +285,21 @@ LM_CHECKS = (("yi-9b", 2, 2, 24), ("olmoe-1b-7b", 2, 2, 24),
              ("recurrentgemma-2b", 3, 1, 2_100), ("xlstm-1.3b", 8, 1, 1_100))
 LM_STEPS = 8            # [lm]: decode steps of the card == CPU check
 LM_TOL = 2e-3           # [lm]: max abs logit difference, card vs CPU
+# [train]: yi-9b at full width, cut in depth (48 layers of AdamW state do
+# not fit 80 GB): arch, layers, batch, sequence, microbatches, timed steps
+TRAIN_RUN = ("yi-9b", 8, 8, 2_048, 2, 3)
+# [train] card == CPU at full width in fp32, one make_train_step step:
+# arch, layers, batch, sequence, microbatches. yi-9b's 1,100 tokens cross
+# TRAIN_RUN's chunk boundaries (two attention chunks of 1,024, three CE
+# chunks of 512); olmoe's two microbatches sum their grads in fp32
+TRAIN_CHECKS = (("yi-9b", 2, 1, 1_100, 1), ("olmoe-1b-7b", 2, 2, 16, 2),
+                ("recurrentgemma-2b", 3, 2, 16, 1),
+                ("xlstm-1.3b", 8, 2, 16, 1))
+TRAIN_LOSS_TOL = 1e-4   # [train]: loss, card vs CPU
+TRAIN_GRAD_TOL = 1e-3   # [train]: per gradient leaf, x the leaf's max abs
+TRAIN_MASTER_TOL = 1e-5  # [train]: updated masters, max abs ...
+TRAIN_MASTER_FLIPS = 1e-4  # ... on all but this share of the elements
+TRAIN_CLI = ["--arch", "yi-9b", "--smoke", "--steps", "6", "--seq", "32"]
 
 
 def _dataset(name: str) -> dict:
@@ -2851,6 +2890,347 @@ def _lm_card_vs_cpu(torch, dev, hosts, log):
     return out
 
 
+def _train_config():
+    """TRAIN_RUN's microbatches and the CLI's AdamW for a run of its warm
+    and timed steps (lr 3e-4, warmup min(20, steps // 5))."""
+    from repro_torch.train import AdamWConfig, TrainConfig
+    steps = 1 + TRAIN_RUN[5]
+    return TrainConfig(n_microbatches=TRAIN_RUN[4], opt=AdamWConfig(
+        lr=3e-4, warmup_steps=min(20, steps // 5), total_steps=steps))
+
+
+def _train_check_config(i):
+    """TRAIN_CHECKS[i]'s step: its microbatches, TRAIN_RUN's AdamW."""
+    return replace(_train_config(), n_microbatches=TRAIN_CHECKS[i][4])
+
+
+def _train_full_width(torch, dev, smi, log):
+    """yi-9b at full width, TRAIN_RUN's depth, bf16 compute params under
+    fp32 masters: one warm step, then timed steps, each ending in a
+    device sync."""
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_data import LMDataConfig, lm_batches
+    from repro_torch.train import init_train_state, make_train_step
+    arch, n, B, S, nm, timed = TRAIN_RUN
+    cfg = get_config(arch).scaled(n_layers=n)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = init_train_state(torch.Generator(device=dev).manual_seed(0),
+                             cfg, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in state.model.parameters())
+    step = make_train_step(cfg, _train_config())
+    dc = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B)
+    rows = []
+    for s in range(1 + timed):
+        x, y = lm_batches(dc, s, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, {"inputs": x, "targets": y})
+        torch.cuda.synchronize()
+        rows.append({"step_s": time.perf_counter() - t0,
+                     **{k: float(v) for k, v in m.items()}})
+    peak = torch.cuda.max_memory_allocated(dev)
+    bad = [k for r in rows for k in ("loss", "grad_norm")
+           if not math.isfinite(r[k])]
+    if bad or not all(bool(torch.isfinite(p).all())
+                      for p in state.model.parameters()):
+        raise AssertionError(f"[train] {arch}: non-finite loss, grad norm "
+                             f"or parameter: {rows}")
+    if abs(rows[0]["loss"] - math.log(cfg.vocab_size)) > 2.0:
+        raise AssertionError(f"[train] {arch}: first loss {rows[0]['loss']} "
+                             f"is not within 2 of ln V")
+    tokens = B * S
+    step_s = [r["step_s"] for r in rows[1:]]
+    flop = 6 * n_params * tokens
+    out = {"arch": arch, "layers": n, "d_model": cfg.d_model,
+           "params": n_params, "batch": B, "seq": S, "microbatches": nm,
+           "init_s": init_s, "warm_step_s": rows[0]["step_s"],
+           "step_s": step_s, "tok_s": [tokens / t for t in step_s],
+           "peak_gib": peak / 2**30,
+           "losses": [r["loss"] for r in rows],
+           "grad_norms": [r["grad_norm"] for r in rows],
+           "lrs": [r["lr"] for r in rows],
+           "six_n_tokens_tflop": flop / 1e12,
+           "six_n_tokens_tflop_s": [flop / t / 1e12 for t in step_s]}
+    log(f"[train] {arch} full width ({n} of {get_config(arch).n_layers} "
+        f"layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+        f"heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), "
+        f"{n_params / 1e9:.3f} B parameters, bf16 compute params under fp32 "
+        f"masters, remat: batch {B} x {S} tokens in {nm} microbatches; "
+        f"warm step {rows[0]['step_s']:.3f} s, then step s "
+        f"{[round(t, 4) for t in step_s]} "
+        f"({[round(t) for t in out['tok_s']]} tok/s); peak memory "
+        f"{out['peak_gib']:.2f} GiB (max_memory_allocated); {smi}")
+    log(f"[train] {arch} losses {[round(v, 4) for v in out['losses']]}, "
+        f"grad_norm {[round(v, 4) for v in out['grad_norms']]}, lr "
+        f"{[f'{v:.3e}' for v in out['lrs']]}; 6·N·tokens = "
+        f"{flop / 1e12:.1f} TFLOP a step, "
+        f"{[round(v, 1) for v in out['six_n_tokens_tflop_s']]} TFLOP/s "
+        f"(for information; remat recomputes the blocks' forward on top)")
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_check_cfg(i):
+    """TRAIN_CHECKS[i]'s arch at full width and its depth, in fp32."""
+    from repro_torch.configs import get_config
+    arch, n = TRAIN_CHECKS[i][:2]
+    return get_config(arch).scaled(n_layers=n, dtype="float32")
+
+
+def _train_check_gen(torch, dev, i):
+    """TRAIN_CHECKS[i]'s generator on the card: the same weights every
+    time it draws."""
+    return torch.Generator(device=dev).manual_seed(10 + i)
+
+
+def _train_check_batch(torch, cfg, i):
+    """TRAIN_CHECKS[i]'s batch on the host, from seed 200 + i."""
+    B, S = TRAIN_CHECKS[i][2:4]
+    rng = np.random.default_rng(200 + i)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (B, S + 1)).astype(np.int32))
+    inputs = toks[:, :-1]
+    if cfg.embedding_inputs:
+        inputs = torch.from_numpy(rng.standard_normal(
+            (B, S, cfg.d_model)).astype(np.float32))
+    return {"inputs": inputs, "targets": toks[:, 1:]}
+
+
+def _train_host_steps(torch, hosts, out):
+    """The CPU side of the checks, one after another (a thread of its
+    own): each (cfg, host weight dict) from the queue ``hosts``, until a
+    None, becomes a model and AdamW state and takes one step; (loss, lr,
+    mu, master, seconds) goes into the queue ``out``, or the exception
+    that stopped the run."""
+    from repro_torch.models import LM, reference_params
+    from repro_torch.train import TrainState, adamw_init, make_train_step
+    try:
+        for i, (cfg, weights) in enumerate(iter(hosts.get, None)):
+            t0 = time.perf_counter()
+            model = LM(cfg, "cpu")
+            model.load_state_dict(weights, assign=True)
+            del weights
+            state = TrainState(model, adamw_init(reference_params(model)),
+                               torch.zeros((), dtype=torch.int32))
+            step = make_train_step(cfg, _train_check_config(i))
+            state, m = step(state, _train_check_batch(torch, cfg, i))
+            out.put((float(m["loss"]), float(m["lr"]),
+                     state.opt_state["mu"], state.opt_state["master"],
+                     time.perf_counter() - t0))
+            del state, model
+    except Exception as e:     # raised again by the reader
+        out.put(e)
+
+
+def _train_card_vs_cpu(torch, dev, results, log):
+    """TRAIN_CHECKS on the card, each against its CPU step from the queue
+    ``results`` (the same weights, the same batch). The first step's mu is
+    (1 - b1) x clip scale x grad, so it is held as the gradient; the
+    comparison runs on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.train import init_train_state, make_train_step
+    out = {}
+    for i, (arch, n, B, S, nm) in enumerate(TRAIN_CHECKS):
+        t0 = time.perf_counter()
+        cfg = _train_check_cfg(i)
+        card = init_train_state(_train_check_gen(torch, dev, i), cfg, dev)
+        step = make_train_step(cfg, _train_check_config(i))
+        card, mc = step(card, {k: v.to(dev) for k, v in
+                               _train_check_batch(torch, cfg, i).items()})
+        res = results.get(timeout=600)
+        if isinstance(res, Exception):
+            raise res
+        loss_h, lr, mu_h, master_h, cpu_s = res
+        loss_err = abs(float(mc["loss"]) - loss_h)
+        grad_err, worst, far, total = 0.0, 0.0, 0, 0
+        for name, w in master_h.items():
+            g_h = mu_h[name].to(dev)
+            scale = float(g_h.abs().max())
+            if scale > 0:
+                grad_err = max(grad_err, float(
+                    (card.opt_state["mu"][name] - g_h).abs().max()) / scale)
+            d = (card.opt_state["master"][name] - w.to(dev)).abs()
+            far += int((d > TRAIN_MASTER_TOL).sum())
+            total += d.numel()
+            worst = max(worst, float(d.max()))
+        del mu_h, master_h
+        row = {"layers": n, "batch": B, "seq": S, "microbatches": nm,
+               "attn_chunks": -(-S // cfg.attn_chunk),
+               "ce_chunks": -(-S // cfg.ce_chunk), "loss": loss_h,
+               "loss_err": loss_err, "grad_rel_err": grad_err,
+               "master_max_err": worst, "master_far": far,
+               "master_elems": total, "lr": lr, "cpu_s": cpu_s,
+               "s": time.perf_counter() - t0}
+        if (loss_err > TRAIN_LOSS_TOL or grad_err > TRAIN_GRAD_TOL
+                or far > TRAIN_MASTER_FLIPS * total
+                or worst > 2 * lr * (1 + 1e-3)):     # + the rounding of w
+            raise AssertionError(f"[train] {arch}: card != CPU: {row}")
+        log(f"[train] {arch} full width (d_model {cfg.d_model}, {n} of "
+            f"{get_config(arch).n_layers} layers) fp32, one step of {B} x "
+            f"{S} in {nm} microbatch(es), {row['attn_chunks']} attention "
+            f"and {row['ce_chunks']} CE chunk(s) a sequence: card == CPU, "
+            f"loss diff {loss_err:.2e} "
+            f"<= {TRAIN_LOSS_TOL}, max grad leaf diff {grad_err:.2e} x its "
+            f"max abs <= {TRAIN_GRAD_TOL}, masters {far} of {total} "
+            f"elements past {TRAIN_MASTER_TOL} (<= {TRAIN_MASTER_FLIPS:.0e} "
+            f"of them), max {worst:.2e} <= 2·lr = {2 * lr:.2e}; CPU step "
+            f"{cpu_s:.1f} s, card side {row['s']:.1f} s")
+        out[arch] = row
+        del card
+        torch.cuda.empty_cache()
+    return out
+
+
+def _train_cli(log):
+    """The training CLI in subprocesses on the card with deterministic
+    algorithms on: TRAIN_CLI straight through into A with a checkpoint at
+    step 3; then B holding only A's step-3 checkpoint (a crash after that
+    save) and ``--resume``. A's and B's step-6 files must be equal byte
+    for byte, and the ``[dedup]`` count the CPU's. A run of ``--steps 3``
+    would not do for the first half: the schedule's length and warmup
+    come from ``--steps``."""
+    import filecmp
+    import re
+    import shutil
+    import tempfile
+
+    from repro_torch.data.lm_data import (LMDataConfig, dedup_corpus,
+                                          synth_corpus)
+    from repro_torch.configs import get_smoke_config
+    src = Path(__file__).resolve().parent / "src"
+    # torch.use_deterministic_algorithms also imports torch._inductor's
+    # config (2-7 s a process), which nothing here compiles, so the flag
+    # is set itself: in torch 2.11 and 2.13 the public call sets only
+    # this flag and inductor's ``deterministic``. The assert fails loudly
+    # if a later torch moves the flag
+    code = ("import sys, torch\n"
+            "torch._C._set_deterministic_algorithms(True)\n"
+            "assert torch.are_deterministic_algorithms_enabled()\n"
+            "from repro_torch.launch.train import main\n"
+            "main(sys.argv[1:])\n")
+    # the CLI computes on the card: at one host thread its processes took
+    # 16-20 s beside the CPU checks, at the default 8, 20-33 s
+    env = {**os.environ, "PYTHONPATH": str(src), "OMP_NUM_THREADS": "1",
+           "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+
+    def run(what, *args):
+        t_start = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code, *TRAIN_CLI, *args],
+                              capture_output=True, text=True, env=env,
+                              timeout=600)
+        for line in proc.stdout.splitlines():
+            log(f"[train] cli {what}: {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"[train] cli {what} exited "
+                                 f"{proc.returncode}: {proc.stderr[-3000:]}")
+        log(f"[train] cli {what}: exit 0 in "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return proc.stdout
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b = Path(tmp, "A"), Path(tmp, "B")
+        out_a = run("A (straight)", "--dedup", "--ckpt-every", "3",
+                    "--ckpt-dir", str(a))
+        shutil.copytree(a / "step_00000003", b / "step_00000003")
+        out_r = run("B (A's step 3, --resume)", "--resume", "--ckpt-dir",
+                    str(b))
+        for out in (out_a, out_r):
+            if not (re.search(r"^step +\d+ loss=[\d.]+ lr=\S+ gnorm=[\d.]+ "
+                              r"tok/s=\d+$", out, re.M)
+                    and out.rstrip().endswith("done.")):
+                raise AssertionError(f"[train] cli lines: {out}")
+        if "[resume] restored step 3" not in out_r:
+            raise AssertionError(f"[train] cli resume: {out_r}")
+        names = sorted(p.name for p in (a / "step_00000006").iterdir())
+        same, diff, errs = filecmp.cmpfiles(a / "step_00000006",
+                                            b / "step_00000006", names,
+                                            shallow=False)
+        if diff or errs or names != sorted(
+                p.name for p in (b / "step_00000006").iterdir()):
+            raise AssertionError(
+                f"[train] cli restart not bitwise: {diff} {errs} (does "
+                f"torch._C._set_deterministic_algorithms still cover what "
+                f"torch.use_deterministic_algorithms does in this torch?)")
+    cfg = get_smoke_config("yi-9b")
+    dc = LMDataConfig(vocab_size=cfg.vocab_size,
+                      seq_len=int(TRAIN_CLI[TRAIN_CLI.index("--seq") + 1]),
+                      global_batch=8)
+    keep, n_dups = dedup_corpus(*synth_corpus(dc, n_docs=256,
+                                              dup_fraction=0.1),
+                                device="cpu")
+    want = (f"[dedup] ScalLoPS SimHash stage: {n_dups} near-duplicates "
+            f"dropped of {len(keep)} docs")
+    if want not in out_a.splitlines():
+        raise AssertionError(f"[train] cli dedup line != CPU's {want!r}")
+    wall = time.perf_counter() - t0
+    log(f"[train] cli: {' '.join(TRAIN_CLI)} straight == its step-3 "
+        f"checkpoint + --resume, {len(same)} files of step 6 equal byte for "
+        f"byte (deterministic algorithms on the card); [dedup] {n_dups} of "
+        f"{len(keep)} == the CPU's; {wall:.1f} s")
+    return {"files_equal": len(same), "dedup": n_dups, "s": wall}
+
+
+def phase_train(torch, ops, dev, smi, log):
+    """LM training (``repro_torch.train``, ``checkpoint``,
+    ``data.lm_data``, ``launch/train.py``): the training CLI's bitwise
+    restart on the card, each block family held card == CPU in fp32 over
+    one step, and yi-9b trained at full width. The CLI's processes run
+    beside the checks (their weights drawn on the card and copied to the
+    host, their CPU steps in a thread); yi-9b trains last, with the card
+    and the host to itself. The training path reaches none of K1-K7."""
+    import queue
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.models import init_params
+    t_phase = time.perf_counter()
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("[train] fp32 products must not run in TF32")
+
+    def draw_hosts():
+        for i in range(len(TRAIN_CHECKS)):
+            cfg = _train_check_cfg(i)
+            model = init_params(cfg, _train_check_gen(torch, dev, i), dev)
+            hosts.put((cfg, {k: v.cpu() for k, v in
+                             model.state_dict().items()}))
+            del model
+        torch.cuda.empty_cache()
+
+    hosts, results = queue.Queue(), queue.Queue()
+    with ThreadPoolExecutor(2) as pool:
+        cli = pool.submit(_train_cli, log)
+        host = pool.submit(_train_host_steps, torch, hosts, results)
+        try:
+            _, draw_l = _window(torch, ops, draw_hosts)
+        finally:
+            hosts.put(None)          # the host thread stops there
+        checks, check_l = _window(torch, ops, lambda: _train_card_vs_cpu(
+            torch, dev, results, log))
+        host.result()
+        cli = cli.result()
+    log(f"[train] the CLI and the checks: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    run, run_l = _window(torch, ops, lambda: _train_full_width(
+        torch, dev, smi, log))
+    launches = {k: draw_l[k] + run_l[k] + check_l[k] for k in run_l}
+    if any(launches.values()):
+        raise AssertionError(f"[train] the training path launched a kernel "
+                             f"of the port: {launches}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[train] the training path launches none of K1-K7 (counts "
+        f"{json.dumps(launches)}): its products are torch.matmul / "
+        f"torch.einsum and autograd's, as the JAX package leaves them to "
+        f"XLA; phase {phase_s:.1f} s")
+    return {"run": run, "checks": checks, "cli": cli, "phase_s": phase_s}
+
+
 def phase_small(torch, dev, log):
     """Card vs CPU (kernels vs twins) end to end on a small index."""
     from repro_torch.core.pipeline import LSHConfig
@@ -3105,6 +3485,8 @@ def main() -> int:
             row.update(mr.get(row["name"], {}))
     lm = phase_lm(torch, ops, dev, smi, log)
     log(f"[main] [lm] {json.dumps(lm)}")
+    train = phase_train(torch, ops, dev, smi, log)
+    log(f"[main] [train] {json.dumps(train)}")
     log(f"[sentinel] builds by site: {json.dumps(SENTINEL.by_site())}")
     rebuilt = SENTINEL.recompiled()
     if rebuilt:

@@ -1,13 +1,16 @@
-"""Model assembly: the decoder/encoder covering all 10 archs, serving half.
+"""Model assembly: the decoder/encoder covering all 10 archs.
 
 The port of ``repro/models/model.py``: ``init_params``, ``init_cache``,
-``forward``, ``prefill`` and ``decode_step``. The reference scans over
-whole repeats of ``cfg.block_pattern`` with (G, ...) stacked parameters
-and applies the pattern's remainder unrolled; the port holds one module
-per layer in the same order — layer ``g·len(pattern) + i`` is the
-reference's ``blocks/b{i}`` at group g, and the layers after the
-``n_groups`` repeats are ``rem/r{i}``. :func:`params_from_reference`
-carries the reference's parameter tree over by that map.
+``forward``, ``prefill``, ``decode_step``, and the training half,
+``chunked_ce``, ``loss_fn`` and ``train_step_fn``. The reference scans
+over whole repeats of ``cfg.block_pattern`` with (G, ...) stacked
+parameters and applies the pattern's remainder unrolled; the port holds
+one module per layer in the same order — layer ``g·len(pattern) + i`` is
+the reference's ``blocks/b{i}`` at group g, and the layers after the
+``n_groups`` repeats are ``rem/r{i}``. :func:`reference_key` is that map;
+:func:`params_from_reference` carries the reference's parameter tree
+over by it, and :func:`reference_params` lists the parameters in the
+order the reference flattens its tree.
 
 Each layer is a :class:`Block` holding a mixer (:class:`Attention`,
 :class:`RGLRU`, :class:`MLSTM` or :class:`SLSTM`) and an optional
@@ -19,7 +22,10 @@ and ``recurrent.py``.
 
 The cache is a list with one entry per layer, with the reference's
 leaves: dict(k, v, pos) for attention (updated in place), dict(conv, h)
-for RG-LRU, (C, n, m) for mLSTM and (c, n, h, m) for sLSTM.
+for RG-LRU, (C, n, m) for mLSTM and (c, n, h, m) for sLSTM. Training
+runs the full forward (no cache) under autograd; with ``cfg.remat`` each
+layer is recomputed in the backward pass, as the reference remats each
+pattern repeat.
 """
 from __future__ import annotations
 
@@ -28,11 +34,17 @@ import math
 import numpy as np
 import torch
 from torch import nn
+from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..util import resolve_device
 from .config import ModelConfig
 from .layers import attention_block, mlp_block, moe_block, norm
 from .recurrent import mlstm_block, rglru_block, slstm_block
+
+MOE_AUX_WEIGHT = 0.01
+Z_LOSS_WEIGHT = 1e-4
+
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)    # "bfloat16" | "float32"
@@ -260,7 +272,8 @@ class LM(nn.Module):
         return self.embedding.device
 
     def head(self) -> torch.Tensor:
-        """The (d, V) fp32 output projection."""
+        """The (d, V) fp32 output projection (the reference's
+        ``_lm_head_matrix``)."""
         return self.embedding.T if self.lm_head is None else self.lm_head
 
 
@@ -305,46 +318,69 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 def _tensor(a) -> torch.Tensor:
-    """A numpy array as a tensor; bfloat16 arrays (numpy has no such dtype
-    of its own) are carried by their bits."""
+    """A numpy array as a tensor (a tensor stays as it is); bfloat16
+    arrays (numpy has no such dtype of its own) are carried by their
+    bits."""
+    if isinstance(a, torch.Tensor):
+        return a.detach()
     a = np.array(a)     # a writable copy
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(a)
 
 
+def reference_key(cfg: ModelConfig, name: str):
+    """Where the reference keeps the port's parameter ``name``: its path in
+    the reference's tree, and the group index within that leaf's leading
+    (G, ...) axis, or None for a leaf that is not stacked. Layer
+    ``g·len(pattern) + i`` is ``blocks/b{i}`` at g for g < n_groups; the
+    rest are ``rem/r{i}``."""
+    parts = name.split(".")
+    if parts[0] != "layers":
+        return (name,), None
+    g, b = divmod(int(parts[1]), len(cfg.block_pattern))
+    if g < cfg.n_groups:
+        return ("blocks", f"b{b}", *parts[2:]), g
+    return ("rem", f"r{b}", *parts[2:]), None
+
+
+def reference_leaf(tree, cfg: ModelConfig, name: str):
+    """The reference tree's value for the port's parameter ``name``."""
+    path, g = reference_key(cfg, name)
+    for k in path:
+        tree = tree[k]
+    return tree if g is None else tree[g]
+
+
+def reference_params(model: LM) -> dict:
+    """The model's parameters by name, in the order the reference
+    flattens its tree (sorted keys, a stacked leaf's groups together), so
+    that sums over them add in the reference's order."""
+    params = dict(model.named_parameters())
+
+    def order(name):
+        path, g = reference_key(model.cfg, name)
+        return path, -1 if g is None else g
+    return {n: params[n] for n in sorted(params, key=order)}
+
+
 def params_from_reference(tree: dict, cfg: ModelConfig, device=None) -> LM:
     """The JAX package's parameter tree (numpy leaves) as the port's
-    :class:`LM`: ``blocks/b{i}`` leaves carry a leading (G, ...) axis and
-    give layers ``g·len(pattern) + i``; ``rem/r{i}`` gives layer
-    ``n_groups·len(pattern) + i``. Every leaf must match the port's shape
-    and dtype."""
-    dev = resolve_device(device)
-    model = LM(cfg, dev)
-
-    def put(param, a):
-        t = _tensor(a)
-        if t.shape != param.shape or t.dtype != param.dtype:
-            raise ValueError(f"leaf {tuple(t.shape)} {t.dtype} does not fit "
-                             f"{tuple(param.shape)} {param.dtype}")
-        with torch.no_grad():
-            param.copy_(t)
-
-    put(model.embedding, tree["embedding"])
-    put(model.final_norm, tree["final_norm"])
-    if model.lm_head is not None:
-        put(model.lm_head, tree["lm_head"])
-    n = len(cfg.block_pattern)
-    for i, layer in enumerate(model.layers):
-        g, b = divmod(i, n)
-        if g < cfg.n_groups:
-            src = tree["blocks"][f"b{b}"]
-        else:
-            src, g = tree["rem"][f"r{b}"], None
-        for key, sub in layer.sublayers():
-            for name, a in src[key].items():
-                put(getattr(sub, name), a if g is None else a[g])
+    :class:`LM`, by :func:`reference_key`'s map. Every leaf must match the
+    port's shape and dtype."""
+    model = LM(cfg, resolve_device(device))
+    with torch.no_grad():
+        for name, param in model.named_parameters():
+            _put(param, reference_leaf(tree, cfg, name))
     return model
+
+
+def _put(dst: torch.Tensor, a) -> None:
+    t = _tensor(a)
+    if t.shape != dst.shape or t.dtype != dst.dtype:
+        raise ValueError(f"leaf {tuple(t.shape)} {t.dtype} does not fit "
+                         f"{tuple(dst.shape)} {dst.dtype}")
+    dst.copy_(t)
 
 
 # ------------------------------------------------------------ cache
@@ -392,7 +428,8 @@ def forward(model: LM, inputs, *, positions=None, cache=None):
 
     inputs: int tokens (B, S) or float embeddings (B, S, d) (stub
     frontends). cache: from :func:`init_cache` (positions required), or
-    None.
+    None. Without a cache and with grad enabled, ``cfg.remat`` wraps each
+    layer in a non-reentrant activation checkpoint.
     """
     cfg = model.cfg
     dt = torch_dtype(cfg)
@@ -407,9 +444,14 @@ def forward(model: LM, inputs, *, positions=None, cache=None):
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = None if cache is None else []
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
     for i, layer in enumerate(model.layers):
-        x, nc, aux = layer(x, positions=positions,
-                           cache=None if cache is None else cache[i])
+        if remat:
+            x, nc, aux = checkpoint(layer, x, positions=positions,
+                                    use_reentrant=False)
+        else:
+            x, nc, aux = layer(x, positions=positions,
+                               cache=None if cache is None else cache[i])
         aux_total = aux_total + aux
         if cache is not None:
             new_cache.append(nc)
@@ -435,3 +477,60 @@ def prefill(model: LM, tokens, cache: list):
     hidden, new_cache, _ = forward(model, tokens, positions=positions,
                                    cache=cache)
     return hidden[:, -1].float() @ model.head(), new_cache
+
+
+# ------------------------------------------------------------ loss
+def chunked_ce(hidden, W, targets, cfg: ModelConfig):
+    """Cross-entropy over sequence chunks of ``cfg.ce_chunk``, so the
+    (B, S, V) logits never exist at once in the forward pass.
+
+    hidden (B, S, d) in the model dtype; W (d, V) fp32; targets (B, S)
+    int (-1 = ignore; the tail of the last chunk is padded with -1).
+    Logits are fp32; the loss adds the z-loss ``Z_LOSS_WEIGHT · Σ lse² /
+    n`` with n = max(count, 1). The chunks add in order, as the
+    reference's scan does. Returns (mean loss fp32, token count int32).
+    """
+    B, S, _ = hidden.shape
+    ck = min(cfg.ce_chunk, S)
+    nc = -(-S // ck)
+    h = F.pad(hidden, (0, 0, 0, nc * ck - S))
+    t = F.pad(targets, (0, nc * ck - S), value=-1)
+    Wf = W.float()
+    dev = hidden.device
+    loss = torch.zeros((), dtype=torch.float32, device=dev)
+    zloss = torch.zeros((), dtype=torch.float32, device=dev)
+    count = torch.zeros((), dtype=torch.int32, device=dev)
+    for c in range(nc):
+        hc, tc = h[:, c * ck:(c + 1) * ck], t[:, c * ck:(c + 1) * ck]
+        logits = hc.float() @ Wf                              # (B, ck, V)
+        lse = torch.logsumexp(logits, dim=-1)
+        lab = logits.gather(-1, tc.clamp_min(0).long()[..., None])[..., 0]
+        valid = tc >= 0
+        loss = loss + torch.where(valid, lse - lab, 0.0).sum()
+        zloss = zloss + torch.where(valid, lse.square(), 0.0).sum()
+        count = count + valid.sum(dtype=torch.int32)
+    n = count.clamp_min(1)
+    return loss / n + Z_LOSS_WEIGHT * zloss / n, count
+
+
+def loss_fn(model: LM, batch: dict):
+    """batch: dict(inputs (B, S) int or (B, S, d) float, targets (B, S)
+    int). Returns (loss, metrics dict(ce, aux, tokens)): the chunked CE
+    plus ``MOE_AUX_WEIGHT`` times the MoE load-balancing loss."""
+    hidden, _, aux = forward(model, batch["inputs"])
+    ce, count = chunked_ce(hidden, model.head(), batch["targets"], model.cfg)
+    loss = ce + MOE_AUX_WEIGHT * aux
+    return loss, {"ce": ce, "aux": aux, "tokens": count}
+
+
+def train_step_fn(model: LM, batch: dict):
+    """Plain grad step (no optimizer): returns (loss, metrics, grads), the
+    grads keyed by parameter name in :func:`reference_params`' order and
+    in each parameter's dtype; a parameter the loss does not reach (the
+    embedding under float inputs) gets zeros, as ``jax.grad`` gives."""
+    params = reference_params(model)
+    loss, metrics = loss_fn(model, batch)
+    grads = torch.autograd.grad(loss, list(params.values()),
+                                materialize_grads=True)
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            dict(zip(params, grads)))

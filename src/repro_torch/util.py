@@ -1,6 +1,6 @@
 """Small shared helpers: power-of-two quantization, device resolution and
-grouping, full-precision float32 products and the uint32 <-> int32
-bit-pattern conversions."""
+grouping, full-precision float32 products, the uint32 <-> int32
+bit-pattern conversions, and flattening trees of tensors."""
 from __future__ import annotations
 
 import contextlib
@@ -79,3 +79,37 @@ def as_unsigned(t: torch.Tensor) -> torch.Tensor:
     """int32 bit patterns -> int64 holding the unsigned value, the form
     every shift, sort and search of 32-bit words runs on in the port."""
     return t.to(torch.int64) & 0xFFFFFFFF
+
+
+def tree_flatten(tree) -> list:
+    """The leaves of nested dicts, lists and tuples with their key paths,
+    ``[(path tuple, leaf)]``, dict keys in sorted order as ``jax.tree``
+    flattens them."""
+    out = []
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], path + (k,))
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, path + (i,))
+        else:
+            out.append((path, node))
+    walk(tree, ())
+    return out
+
+
+def tree_unflatten(like, leaves):
+    """A tree shaped as ``like`` holding ``leaves`` in
+    :func:`tree_flatten`'s order (dicts keep ``like``'s key order)."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            vals = {k: build(node[k]) for k in sorted(node)}
+            return {k: vals[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v) for v in node)
+        return next(it)
+    return build(like)

@@ -25,7 +25,7 @@ def _port_modules():
 
 def test_port_modules_import_without_jax():
     mods = _port_modules()
-    assert "repro_torch.index.service" in mods and len(mods) >= 72
+    assert "repro_torch.index.service" in mods and len(mods) >= 80
     assert {"repro_torch.index.shard", "repro_torch.serve.engine",
             "repro_torch.serve.fleet", "repro_torch.faults.supervisor",
             "repro_torch.launch.search_serve", "repro_torch.core.mapreduce",
@@ -42,12 +42,17 @@ def test_port_modules_import_without_jax():
             "repro_torch.configs.nemotron_4_15b",
             "repro_torch.configs.granite_3_8b",
             "repro_torch.configs.granite_34b",
-            "repro_torch.configs.xlstm_1_3b"} <= set(mods)
+            "repro_torch.configs.xlstm_1_3b",
+            "repro_torch.train", "repro_torch.train.optimizer",
+            "repro_torch.train.train_lib", "repro_torch.train.compression",
+            "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
+            "repro_torch.data.lm_data", "repro_torch.launch.train"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'jax' or m.startswith('jax.')\n"
-            "             or m == 'repro' or m.startswith('repro.'))\n"
+            "             or m == 'repro' or m.startswith('repro.')\n"
+            "             or m == 'ml_dtypes')\n"
             "assert not bad, bad\n"
             "print('ok', len(sys.modules))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -73,7 +78,7 @@ def _imported_roots(path: Path):
     + ["chip_smoke.py"]))
 def test_source_imports_neither_jax_nor_repro(path):
     roots = set(_imported_roots(ROOT / path))
-    assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)
+    assert not roots & {"jax", "jaxlib", "repro", "ml_dtypes"}, (path, roots)
 
 
 def test_default_device_raises_without_a_card():
@@ -145,3 +150,24 @@ def test_chip_smoke_alone_fails_and_reports_nothing(tmp_path):
                           env=dict(os.environ, PYTHONPATH=""))
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout and '"kernels"' not in proc.stdout
+
+
+def test_training_entry_points_default_to_the_card():
+    """The training slice's entry points raise without a card unless given
+    the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.lm_data import (LMDataConfig, dedup_corpus,
+                                          lm_batches, token_signatures)
+    from repro_torch.train import init_train_state
+    cfg = get_smoke_config("yi-9b")
+    toks, lens = np.zeros((2, 8), np.int32), np.array([8, 8])
+    for call in (lambda: init_train_state(torch.Generator(), cfg),
+                 lambda: lm_batches(LMDataConfig(256, 8, 2), 0),
+                 lambda: token_signatures(toks, lens),
+                 lambda: dedup_corpus(toks, lens)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert init_train_state(torch.Generator(), cfg,
+                            "cpu").model.device.type == "cpu"
