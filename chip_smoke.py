@@ -187,9 +187,35 @@ Phases, any failure exits non-zero:
               resume from their step-3 checkpoint, and its ``[dedup]``
               count equals the CPU's. The CLI and the checks run side by
               side; yi-9b trains last, with the card and the host to
-              itself. The path launches none of K1-K7. Last, the
-              recompile sentinel's builds by site are logged, and any
-              key built twice fails the run.
+              itself. The path launches none of K1-K7.
+18. mesh    — the LM stack over a mesh of entries on the one card
+              (``repro_torch.models.sharding``). The sharded training
+              step (FSDP blocks, a layer gathered at a time, fp32 gradient
+              buffers, AdamW on the blocks) for yi-9b and olmoe-1b-7b at
+              full width (2 layers, fp32, 4 x 16 tokens, 2 microbatches)
+              on a ("data", "model") = (2, 2) mesh of ``cuda:0`` against
+              the unsharded card step with [train]'s bars; yi-9b's
+              stepped (2, 2) state saved (its files written while the card
+              serves). yi-9b at full width and depth in bf16 on a (1, 4)
+              mesh, [lm]'s weights and prompt (seed 0), served with the KV
+              cache's sequence sharded over "model" (prefill, then 31
+              sequence-parallel decode steps); the cache after the
+              sharded prefill, gathered, equals the unsharded prefill's
+              bit for bit, and the greedy tokens are logged beside [lm]'s.
+              yi-9b (2 layers, fp32) on (2, 2): prefill of 4 x 1,100
+              tokens and 8 decode steps, logits within 2e-4 of the
+              unsharded card's at every step. The saved state restored
+              onto (4, 1) and (1, 1), every leaf bit for bit. yi-9b at
+              full width, 8 layers, bf16 under fp32 masters on (2, 2),
+              batch 8 x 2,048 in 2 microbatches: a warm step and 3 timed
+              steps. Then [dryrun]: ``launch.dryrun.lower_cell`` for
+              yi-9b x {train_4k, decode_32k} on the (16, 16) production
+              mesh of ``meta`` entries, and the counting walker over the
+              timed step's shapes (a subprocess at the lowest priority,
+              started after the build, since its op-by-op walk of a
+              48-layer step takes minutes on the host). The mesh paths
+              launch none of K1-K7. Last, the recompile sentinel's builds
+              by site are logged, and any key built twice fails the run.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after it: serving (phase 2), each join's ``search_pairs``
@@ -201,7 +227,7 @@ its scoring (K7, K3), and in phase 10 the timed ``all_pairs_search`` (the
 all-pairs main path), the row wave over the survivors (K7's path), the
 base join and the ingest, each on its own, in phase 11 each sharded
 join, split score, row wave and ring sweep, in phase 15 each wide or
-long path, and phases 16 and 17 whole (no kernel may launch there).
+long path, and phases 16, 17 and 18 whole (no kernel may launch there).
 The launches of phases 6, 11 and 17's CLI runs happen in their
 processes and are not counted. K2's row also times the dense join's first
 emission tile. The kernel wrappers record their first inputs throughout
@@ -216,9 +242,12 @@ card; imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
+import tempfile
+import textwrap
 import time
 from dataclasses import replace
 from pathlib import Path
@@ -300,6 +329,17 @@ TRAIN_GRAD_TOL = 1e-3   # [train]: per gradient leaf, x the leaf's max abs
 TRAIN_MASTER_TOL = 1e-5  # [train]: updated masters, max abs ...
 TRAIN_MASTER_FLIPS = 1e-4  # ... on all but this share of the elements
 TRAIN_CLI = ["--arch", "yi-9b", "--smoke", "--steps", "6", "--seq", "32"]
+MESH_SERVE = (1, 4)     # [mesh]: (data, model) of the full-size serving
+# [mesh] sequence-parallel decode in fp32: arch, layers, batch, prompt,
+# decode steps (1,100 tokens: two attention chunks); the reference test's
+# bar on the logits
+MESH_DECODE = ("yi-9b", 2, 4, 1_100, 8)
+MESH_DECODE_TOL = 2e-4
+# [mesh] the sharded step in fp32 at full width against the unsharded
+# card step: arch, layers, batch, sequence, microbatches (each of the two
+# DP rows: 2 x 16 tokens in 2 microbatches)
+MESH_TRAIN_CHECKS = (("yi-9b", 2, 4, 16, 2), ("olmoe-1b-7b", 2, 4, 16, 2))
+MESH_RESTORE = ((4, 1), (1, 1))   # [mesh]: meshes the (2, 2) state resumes on
 
 
 def _dataset(name: str) -> dict:
@@ -2798,6 +2838,7 @@ def _lm_serve(torch, dev, smi, log):
         f"tok/s), peak memory {out['peak_gib']:.2f} GiB "
         f"(max_memory_allocated); {smi}")
     log(f"[lm] {arch} generated ids, first row: {ids[0].tolist()}")
+    out["ids"] = ids.tolist()
     del model, logits
     torch.cuda.empty_cache()
     return out
@@ -3231,6 +3272,473 @@ def phase_train(torch, ops, dev, smi, log):
     return {"run": run, "checks": checks, "cli": cli, "phase_s": phase_s}
 
 
+def _dryrun_start():
+    """The [dryrun] walk in a subprocess at the lowest CPU priority and
+    one host thread: it needs only the host, and walks a 48-layer step op
+    by op on meta tensors. Its last stdout line is a JSON object."""
+    src = Path(__file__).resolve().parent / "src"
+    arch, n, B, S, nm, _ = TRAIN_RUN
+    code = textwrap.dedent(f"""
+        import json, os, time
+        os.nice(19)
+        import torch
+        torch.set_num_threads(1)
+        from repro_torch.configs import get_config
+        from repro_torch.launch.dryrun import lower_cell
+        from repro_torch.launch.hlo_walk import walk
+        from repro_torch.launch.mesh import make_production_mesh
+        from repro_torch.models import LM
+        from repro_torch.models.model import reference_params
+        from repro_torch.models.sharding import Mesh
+        from repro_torch.train import (AdamWConfig, TrainConfig,
+                                       make_train_step)
+        from repro_torch.train.optimizer import adamw_init
+        from repro_torch.train.train_lib import (TrainState, place_batch,
+                                                 shard_train_state)
+        out = {{}}
+        mesh = make_production_mesh()
+        for shape in ("train_4k", "decode_32k"):
+            t0 = time.perf_counter()
+            mem, r = lower_cell({arch!r}, shape, mesh, "single")
+            out[shape] = {{**r.__dict__, "mem": mem,
+                           "walk_s": time.perf_counter() - t0}}
+        # the timed step's shapes, every row of a (2, 2) meta mesh
+        cfg = get_config({arch!r}).scaled(n_layers={n})
+        m4 = Mesh((2, 2), ("data", "model"), "meta")
+        lm = LM(cfg, "meta")
+        state = shard_train_state(TrainState(
+            lm, adamw_init(reference_params(lm)),
+            torch.zeros((), dtype=torch.int32, device="meta")), m4)
+        step = make_train_step(cfg, TrainConfig(n_microbatches={nm},
+                               opt=AdamWConfig()), m4)
+        batch = {{k: torch.empty(({B}, {S}), dtype=torch.int32,
+                                 device="meta") for k in ("inputs",
+                                                          "targets")}}
+        t0 = time.perf_counter()
+        w = walk(step, state, place_batch(batch, m4, cfg))
+        out["timed_step"] = {{"flops": w.flops, "hbm_bytes": w.hbm_bytes,
+                              "collective_bytes": w.collective_bytes,
+                              "walk_s": time.perf_counter() - t0}}
+        print(json.dumps(out))
+        """)
+    env = {**os.environ, "PYTHONPATH": str(src), "OMP_NUM_THREADS": "1"}
+    # files, not pipes: nothing reads them until [mesh]
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, "-c", code], env=env,
+                            stdout=out, stderr=err, text=True)
+    proc.files = (out, err)
+    return proc
+
+
+def _mesh_cache_equal(torch, a, b):
+    """Every leaf of an unsharded cache equals the sharded one's, whole."""
+    for la, lb in zip(a, b):
+        for k in (la if isinstance(la, dict) else range(len(la))):
+            if not torch.equal(la[k], lb[k].full(la[k].device)):
+                return False
+    return True
+
+
+def _mesh_serve(torch, dev, smi, lm, log):
+    """yi-9b at full width and depth in bf16, [lm]'s weights and prompt,
+    on a (1, 4) mesh of ``dev``: the unsharded prefill's cache kept, the
+    model placed as blocks, then the sharded prefill (its cache gathered
+    == the unsharded one, bit for bit) and greedy decode."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import (decode_step, init_cache, init_params,
+                                    prefill)
+    from repro_torch.models.model import ShardedLM
+    from repro_torch.models.sharding import Mesh, make_rules
+    arch, B, P, G = LM_SERVE
+    cfg = get_config(arch)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = init_params(cfg, gen, dev)          # [lm]'s draws, in order
+    torch.randint(0, cfg.vocab_size, (B, 64), generator=gen, device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                           device=dev)
+    want = init_cache(cfg, B, P + G, dev)
+    prefill(model, prompt, want)
+    mesh = Mesh(MESH_SERVE, ("data", "model"), [dev] * 4)
+    rules = make_rules(cfg, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sharded = ShardedLM.place(model, mesh, rules)
+    del model
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    def run(toks, steps, check=None):
+        cache = init_cache(cfg, B, toks.shape[1] + steps + 1, rules=rules)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(sharded, toks, cache, rules)
+        tok = torch.argmax(logits, -1)[:, None]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        same = None if check is None else _mesh_cache_equal(torch, check,
+                                                            cache)
+        out = [tok]
+        t2 = time.perf_counter()
+        for i in range(steps):
+            logits, cache = decode_step(sharded, cache, tok,
+                                        toks.shape[1] + i, rules)
+            tok = torch.argmax(logits, -1)[:, None]
+            out.append(tok)
+        torch.cuda.synchronize()
+        return (torch.cat(out, 1).cpu().numpy(), logits, t1 - t0,
+                time.perf_counter() - t2, same)
+
+    # warm the sharded paths (64 + 3 + 1 slots: the cache's sequence
+    # divides over "model", so the decode is sequence-parallel too)
+    run(prompt[:, :64], 3)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ids, logits, prefill_s, decode_s, same = run(prompt, G - 1, want)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not same:
+        raise AssertionError(f"[mesh] {arch}: the cache after the sharded "
+                             f"prefill != the unsharded prefill's")
+    if not bool(torch.isfinite(logits).all()) or ids.shape != (B, G):
+        raise AssertionError(f"[mesh] {arch}: sharded serving gave "
+                             f"non-finite logits or ids {ids.shape}")
+    lm_ids = np.asarray(lm["serve"]["ids"])
+    agree = float(np.mean(ids == lm_ids))
+    differ = (ids != lm_ids).any(0)
+    first = int(np.argmax(differ)) if differ.any() else G
+    steps = G - 1
+    out = {"mesh": MESH_SERVE, "place_s": place_s, "prefill_s": prefill_s,
+           "decode_ms_step": 1e3 * decode_s / steps,
+           "decode_tok_s": B * steps / decode_s, "peak_gib": peak / 2**30,
+           "ids_agree": agree, "first_diverging_token": first}
+    u = lm["serve"]
+    log(f"[mesh] {arch} full width and depth in bf16 on a (data, model) = "
+        f"{MESH_SERVE} mesh of {dev} x 4 (the KV cache's sequence over "
+        f"'model', {(P + G) // MESH_SERVE[1]} slots an entry; weights "
+        f"placed as blocks in {place_s:.2f} s): batch {B} x prompt {P}, "
+        f"{G} tokens; prefill {prefill_s:.3f} s (unsharded [lm] "
+        f"{u['prefill_s']:.3f}), decode {out['decode_ms_step']:.2f} ms a "
+        f"step, {out['decode_tok_s']:.1f} tok/s (unsharded "
+        f"{u['decode_ms_step']:.2f} ms, {u['decode_tok_s']:.1f}), peak "
+        f"{out['peak_gib']:.2f} GiB (unsharded {u['peak_gib']:.2f}); {smi}")
+    log(f"[mesh] {arch} the cache after the sharded prefill, gathered, == "
+        f"the unsharded prefill's bit for bit ({cfg.n_layers} layers of k, "
+        f"v, pos); greedy ids agree with [lm]'s on {agree:.4f} of "
+        f"{B} x {G} (first token where a row differs: {first}; the "
+        f"sequence-parallel merge rounds bf16 partials otherwise than one "
+        f"chunked flash, and random weights leave the top logits within "
+        f"bf16 rounding of each other; the fp32 check below holds the "
+        f"route)")
+    del sharded, want, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_decode_check(torch, dev, log):
+    """MESH_DECODE in fp32: the same weights unsharded and on a (2, 2)
+    mesh of ``dev``, the same tokens; logits within MESH_DECODE_TOL at
+    the prefill and every decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import (decode_step, init_cache, init_params,
+                                    prefill)
+    from repro_torch.models.model import ShardedLM
+    from repro_torch.models.sharding import Mesh, make_rules
+    arch, n, B, P, steps = MESH_DECODE
+    cfg = get_config(arch).scaled(n_layers=n, dtype="float32")
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(20),
+                        dev)
+    mesh = Mesh((2, 2), ("data", "model"), [dev] * 4)
+    rules = make_rules(cfg, mesh)
+    sharded = ShardedLM.place(model, mesh, rules)
+    toks = torch.from_numpy(np.random.default_rng(21).integers(
+        0, cfg.vocab_size, (B, P + steps))).to(dev)
+
+    def run(m, r):
+        cache = init_cache(cfg, B, P + steps, dev, rules=r)
+        lg, cache = prefill(m, toks[:, :P], cache, r)
+        out = [lg]
+        for s in range(P, P + steps):
+            lg, cache = decode_step(m, cache, toks[:, s:s + 1], s, r)
+            out.append(lg)
+        return out
+
+    want, got = run(model, None), run(sharded, rules)
+    errs = [float((a - b).abs().max()) for a, b in zip(want, got)]
+    if max(errs) > MESH_DECODE_TOL:
+        raise AssertionError(f"[mesh] {arch} sharded decode != unsharded: "
+                             f"max abs logit per step {errs}")
+    wall = time.perf_counter() - t0
+    log(f"[mesh] {arch} full width ({n} layers) fp32 on a (2, 2) mesh of "
+        f"{dev}: prefill {B} x {P} ({-(-P // cfg.attn_chunk)} attention "
+        f"chunks) + {steps} sequence-parallel decode steps == the "
+        f"unsharded card within {max(errs):.2e} <= {MESH_DECODE_TOL} max "
+        f"abs logit (per step {[f'{e:.1e}' for e in errs]}); {wall:.1f} s")
+    del model, sharded
+    torch.cuda.empty_cache()
+    return {"max_abs_err": max(errs), "errs": errs, "s": wall}
+
+
+def _mesh_train_checks(torch, dev, log):
+    """MESH_TRAIN_CHECKS: one fp32 step unsharded and on a (2, 2) mesh
+    of ``dev`` from the same state and batch, held to [train]'s bars.
+    Returns the rows and yi-9b's stepped (2, 2) state."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.sharding import Mesh
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.train_lib import place_batch, shard_train_state
+    out, keep = {}, None
+    for i, (arch, n, B, S, nm) in enumerate(MESH_TRAIN_CHECKS):
+        t0 = time.perf_counter()
+        cfg = get_config(arch).scaled(n_layers=n, dtype="float32")
+        state = init_train_state(torch.Generator(device=dev).manual_seed(
+            30 + i), cfg, dev)
+        mesh = Mesh((2, 2), ("data", "model"), [dev] * 4)
+        sharded = shard_train_state(state, mesh)
+        rng = np.random.default_rng(31 + i)
+        batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))
+                                     .astype(np.int32)).to(dev)
+                 for k in ("inputs", "targets")}
+        tc = replace(_train_config(), n_microbatches=nm)
+        state, mu = make_train_step(cfg, tc)(state, batch)
+        sharded, ms = make_train_step(cfg, tc, mesh)(
+            sharded, place_batch(batch, mesh, cfg))
+        lr = float(mu["lr"])
+        loss_err = abs(float(ms["loss"]) - float(mu["loss"]))
+        grad_err, worst, far, total = 0.0, 0.0, 0, 0
+        for name, w in state.opt_state["master"].items():
+            g = state.opt_state["mu"][name]
+            scale = float(g.abs().max())
+            if scale > 0:
+                grad_err = max(grad_err, float((sharded.opt_state["mu"][
+                    name].full(dev) - g).abs().max()) / scale)
+            d = (sharded.opt_state["master"][name].full(dev) - w).abs()
+            far += int((d > TRAIN_MASTER_TOL).sum())
+            total += d.numel()
+            worst = max(worst, float(d.max()))
+        row = {"layers": n, "batch": B, "seq": S, "microbatches": nm,
+               "loss": float(mu["loss"]), "loss_err": loss_err,
+               "grad_rel_err": grad_err, "master_max_err": worst,
+               "master_far": far, "master_elems": total, "lr": lr,
+               "s": time.perf_counter() - t0}
+        if (loss_err > TRAIN_LOSS_TOL or grad_err > TRAIN_GRAD_TOL
+                or far > TRAIN_MASTER_FLIPS * total
+                or worst > 2 * lr * (1 + 1e-3)):
+            raise AssertionError(f"[mesh] {arch}: sharded step != "
+                                 f"unsharded: {row}")
+        log(f"[mesh] {arch} full width ({n} layers) fp32, one step of {B} x "
+            f"{S} in {nm} microbatches on a (2, 2) mesh of {dev} (FSDP "
+            f"blocks, a layer gathered at a time, fp32 gradient buffers, "
+            f"AdamW on the blocks) == the unsharded card step: loss diff "
+            f"{loss_err:.2e} <= {TRAIN_LOSS_TOL}, max grad leaf diff "
+            f"{grad_err:.2e} x its max abs <= {TRAIN_GRAD_TOL}, masters "
+            f"{far} of {total} past {TRAIN_MASTER_TOL}, max {worst:.2e} <= "
+            f"2·lr; {row['s']:.1f} s")
+        out[arch] = row
+        if i == 0:
+            keep = sharded
+        del state, sharded
+        torch.cuda.empty_cache()
+    return out, keep
+
+
+def _mesh_save(state):
+    """Start saving ``state`` (a mesh state): the host copy now, the
+    files by the manager's writer thread while the card serves. Returns
+    what ``_mesh_restore`` needs."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    tmp = tempfile.TemporaryDirectory()
+    mgr = CheckpointManager(tmp.name, async_writes=True)
+    t0 = time.perf_counter()
+    mgr.save(1, state.tree(), block=False)
+    return tmp, mgr, time.perf_counter() - t0
+
+
+def _mesh_restore(torch, dev, state, saved, log):
+    """``state``'s checkpoint (``_mesh_save``) restored onto each of
+    MESH_RESTORE's meshes of ``dev``: every leaf, gathered, bit for bit."""
+    from repro_torch.models.sharding import Mesh, Sharded
+    from repro_torch.train.train_lib import state_sharding
+    from repro_torch.util import tree_flatten
+    tmp, mgr, copy_s = saved
+    out = {"host_copy_s": copy_s}
+    try:
+        t0 = time.perf_counter()
+        mgr.wait()
+        out["write_wait_s"] = time.perf_counter() - t0
+        before = tree_flatten(state.tree())
+        for shape in MESH_RESTORE:
+            t1 = time.perf_counter()
+            mesh = Mesh(shape, ("data", "model"), [dev] * math.prod(shape))
+            tree, _ = mgr.restore(state.tree(),
+                                  sharding_tree=state_sharding(state, mesh))
+            for (path, a), (_, b) in zip(before, tree_flatten(tree)):
+                x = a.full(dev) if isinstance(a, Sharded) else a
+                y = b.full(dev) if isinstance(b, Sharded) else b
+                if isinstance(b, Sharded) and b.mesh is not mesh:
+                    raise AssertionError(f"[mesh] restore: {path} not on "
+                                         f"{shape}")
+                if x.dtype != y.dtype or not torch.equal(x, y):
+                    raise AssertionError(f"[mesh] restore onto {shape}: "
+                                         f"leaf {path} differs")
+            out[f"{shape[0]}x{shape[1]}_s"] = time.perf_counter() - t1
+            del tree
+    finally:
+        tmp.cleanup()
+    nbytes = sum(a.numel() * a.element_size() for _, a in before)
+    log(f"[mesh] elastic restore: the (2, 2) state ({len(before)} leaves, "
+        f"{nbytes / 1e9:.2f} GB) copied to the host in {copy_s:.1f} s and "
+        f"written while the card served ({out['write_wait_s']:.1f} s "
+        f"waited after), restored onto "
+        f"{' and '.join(str(s) for s in MESH_RESTORE)} in "
+        f"{', '.join(f'{out[k]:.1f}' for k in out if 'x' in k[:4])} s: "
+        f"every leaf, gathered, equal bit for bit")
+    return out
+
+
+def _mesh_train_full(torch, dev, smi, train, log):
+    """TRAIN_RUN's yi-9b on a (2, 2) mesh of ``dev``: a warm step, then
+    timed steps, beside [train]'s unsharded numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_data import LMDataConfig, lm_batches
+    from repro_torch.models.sharding import Mesh
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.train_lib import place_batch
+    arch, n, B, S, nm, timed = TRAIN_RUN
+    cfg = get_config(arch).scaled(n_layers=n)
+    mesh = Mesh((2, 2), ("data", "model"), [dev] * 4)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = init_train_state(torch.Generator(device=dev).manual_seed(0),
+                             cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = make_train_step(cfg, _train_config(), mesh)
+    dc = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B)
+    rows = []
+    for s in range(1 + timed):
+        x, y = lm_batches(dc, s, device=dev)
+        batch = place_batch({"inputs": x, "targets": y}, mesh, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        rows.append({"step_s": time.perf_counter() - t0,
+                     **{k: float(v) for k, v in m.items()}})
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not all(math.isfinite(r[k]) for r in rows
+               for k in ("loss", "grad_norm")):
+        raise AssertionError(f"[mesh] {arch}: non-finite loss or grad "
+                             f"norm: {rows}")
+    if abs(rows[0]["loss"] - math.log(cfg.vocab_size)) > 2.0:
+        raise AssertionError(f"[mesh] {arch}: first loss {rows[0]['loss']}")
+    step_s = [r["step_s"] for r in rows[1:]]
+    tokens = B * S
+    out = {"layers": n, "mesh": (2, 2), "init_s": init_s,
+           "warm_step_s": rows[0]["step_s"], "step_s": step_s,
+           "tok_s": [tokens / t for t in step_s], "peak_gib": peak / 2**30,
+           "losses": [r["loss"] for r in rows]}
+    u = train["run"]
+    log(f"[mesh] {arch} full width ({n} of {get_config(arch).n_layers} "
+        f"layers), bf16 under fp32 masters, remat, on a (2, 2) mesh of "
+        f"{dev} (FSDP blocks; each DP row {B // 2} x {S} in {nm} "
+        f"microbatches): state placed in {init_s:.2f} s, warm step "
+        f"{rows[0]['step_s']:.3f} s, then step s "
+        f"{[round(t, 4) for t in step_s]} "
+        f"({[round(t) for t in out['tok_s']]} tok/s; unsharded [train] "
+        f"{[round(t, 4) for t in u['step_s']]} s); peak "
+        f"{out['peak_gib']:.2f} GiB (unsharded {u['peak_gib']:.2f}); "
+        f"losses {[round(v, 4) for v in out['losses']]}; {smi}")
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dryrun_report(proc, run, log):
+    """The [dryrun] subprocess's results, logged; the walker's FLOPs of
+    the timed step's shapes over its measured step time."""
+    from repro_torch.launch.roofline import HBM_BW, NVLINK_BW, PEAK_FLOPS
+    t0 = time.perf_counter()
+    try:
+        proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    stdout, stderr = [f.seek(0) or f.read() for f in proc.files]
+    for f in proc.files:
+        f.close()
+    if proc.returncode != 0:
+        raise AssertionError(f"[dryrun] exited {proc.returncode}: "
+                             f"{stderr[-3000:]}")
+    res = json.loads(stdout.strip().splitlines()[-1])
+    for shape in ("train_4k", "decode_32k"):
+        r = res[shape]
+        mem = r["mem"]
+        colls = {k: v for k, v in r["collectives"].items() if v}
+        log(f"[dryrun] {TRAIN_RUN[0]} x {shape} x single ((16, 16) meta "
+            f"entries, one DP row of {r['row_entries']} walked, "
+            f"{r['walk_s']:.1f} s): per device argument "
+            f"{mem['argument'] / 2**30:.2f} GiB, temp "
+            f"{mem['temp'] / 2**30:.2f} GiB; flops {r['hlo_flops']:.4e}, "
+            f"bytes {r['hlo_bytes']:.4e}, collective bytes "
+            f"{r['collective_bytes']:.4e} {json.dumps(colls)}; terms at the "
+            f"H100's data-sheet rates ({PEAK_FLOPS:.4g} FLOP/s, "
+            f"{HBM_BW:.3g} B/s, NVLink {NVLINK_BW:.3g} B/s): compute "
+            f"{1e3 * r['compute_s']:.2f} ms, memory "
+            f"{1e3 * r['memory_s']:.2f} ms, collective "
+            f"{1e3 * r['collective_s']:.2f} ms -> {r['bottleneck']}-bound, "
+            f"useful_ratio {r['useful_ratio']:.4f} (the row's compute on "
+            f"one entry: 'model' splits storage only)")
+    t = res["timed_step"]
+    step_s = float(np.median(run["step_s"]))
+    log(f"[dryrun] the timed step's shapes ({TRAIN_RUN[0]}, "
+        f"{TRAIN_RUN[1]} layers, {TRAIN_RUN[2]} x {TRAIN_RUN[3]}, every "
+        f"row of a (2, 2) meta mesh; walked in {t['walk_s']:.1f} s): "
+        f"{t['flops'] / 1e12:.1f} TFLOP of products over its measured "
+        f"median step {step_s:.4f} s on the card = "
+        f"{t['flops'] / step_s / 1e12:.1f} TFLOP/s; "
+        f"{t['hbm_bytes'] / 1e12:.2f} TB of op traffic, "
+        f"{t['collective_bytes'] / 1e9:.2f} GB between entries; waited "
+        f"{time.perf_counter() - t0:.1f} s for the walk")
+    return {**res, "timed_step_tflop_s": t["flops"] / step_s / 1e12}
+
+
+def phase_mesh(torch, ops, dev, smi, lm, train, dryrun_proc, log):
+    """The LM stack over a mesh of entries on the one card (phase 18):
+    sequence-parallel serving at full size, the fp32 decode and training
+    checks against the unsharded card, the elastic restore, the sharded
+    training step at full width, and the [dryrun] walk's figures. Every
+    check fails the run; the mesh paths reach none of K1-K7."""
+    t_phase = time.perf_counter()
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("[mesh] fp32 products must not run in TF32")
+
+    def paths():
+        checks, state = _mesh_train_checks(torch, dev, log)
+        saved = _mesh_save(state)
+        serve = _mesh_serve(torch, dev, smi, lm, log)
+        decode = _mesh_decode_check(torch, dev, log)
+        restore = _mesh_restore(torch, dev, state, saved, log)
+        del state
+        torch.cuda.empty_cache()
+        run = _mesh_train_full(torch, dev, smi, train, log)
+        return {"serve": serve, "decode": decode, "checks": checks,
+                "restore": restore, "run": run}
+
+    out, launches = _window(torch, ops, paths)
+    if any(launches.values()):
+        raise AssertionError(f"[mesh] the mesh paths launched a kernel of "
+                             f"the port: {launches}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[mesh] the mesh paths launch none of K1-K7 (counts "
+        f"{json.dumps(launches)}); phase {out['phase_s']:.1f} s")
+    out["dryrun"] = _dryrun_report(dryrun_proc, out["run"], log)
+    return out
+
+
 def phase_small(torch, dev, log):
     """Card vs CPU (kernels vs twins) end to end on a small index."""
     from repro_torch.core.pipeline import LSHConfig
@@ -3376,6 +3884,18 @@ def main() -> int:
     log(f"[build] nvcc sm_90a, {len(build.SOURCES)} sources in parallel: "
         f"{build_s:.2f} s")
     _log_ptxas(build, log)
+    dryrun_proc = _dryrun_start()
+    try:
+        return _run_phases(torch, ops, SENTINEL, log, t_start, dev, smi,
+                           dryrun_proc)
+    finally:
+        if dryrun_proc.poll() is None:
+            dryrun_proc.kill()
+            dryrun_proc.wait()
+
+
+def _run_phases(torch, ops, SENTINEL, log, t_start, dev, smi, dryrun_proc):
+    """Phases 2-18 (see the module docstring), then the closing lines."""
 
     ops.RECORDED = {}
     (index, serve_data, serve_probe), serve_l = _window(
@@ -3487,6 +4007,8 @@ def main() -> int:
     log(f"[main] [lm] {json.dumps(lm)}")
     train = phase_train(torch, ops, dev, smi, log)
     log(f"[main] [train] {json.dumps(train)}")
+    mesh = phase_mesh(torch, ops, dev, smi, lm, train, dryrun_proc, log)
+    log(f"[main] [mesh] {json.dumps(mesh)}")
     log(f"[sentinel] builds by site: {json.dumps(SENTINEL.by_site())}")
     rebuilt = SENTINEL.recompiled()
     if rebuilt:

@@ -17,10 +17,15 @@ loads here.
     updated in place by the next step); only disk I/O is deferred. A
     failed write is raised by the next ``wait``.
 
-Trees are nested dicts, lists and tuples of tensors. ``restore`` puts
-each leaf on the device and in the dtype of the matching leaf of
-``like``; the reference's ``sharding_tree=`` (restoring onto another
-mesh) waits for the port's meshes.
+  * ELASTIC: ``restore(sharding_tree=...)`` places each leaf by a
+    (mesh, spec) on a NEW mesh — a job restarted at another scale
+    resumes from the same manifest.
+
+Trees are nested dicts, lists and tuples of tensors or ``Sharded``
+tensors; ``save`` writes a ``Sharded`` leaf's whole array, as the
+reference does in one process (the format does not change). ``restore``
+puts each leaf on the device and in the dtype of the matching leaf of
+``like``, or places it by ``sharding_tree``.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ import numpy as np
 import torch
 
 from ..faults.atomic import _fsync_dir, atomic_write
+from ..models.sharding import Sharded
 from ..util import tree_flatten, tree_unflatten
 
 # logical dtype -> the same-width integer dtype its bits are stored as
@@ -43,10 +49,12 @@ _BITCAST = {"bfloat16": (torch.int16, np.uint16),
             "float8_e5m2": (torch.uint8, np.uint8)}
 
 
-def _to_savable(t: torch.Tensor) -> tuple[np.ndarray, str]:
-    """A host copy of ``t`` as a numpy array, and its logical dtype."""
+def _to_savable(t) -> tuple[np.ndarray, str]:
+    """A host copy of ``t`` (a tensor or a ``Sharded`` one, whole) as a
+    numpy array, and its logical dtype."""
     name = str(t.dtype).removeprefix("torch.")
-    t = t.detach().to("cpu", copy=True)
+    t = t.full("cpu") if isinstance(t, Sharded) else \
+        t.detach().to("cpu", copy=True)
     if name in _BITCAST:
         tview, npdt = _BITCAST[name]
         return t.view(tview).numpy().view(npdt), name
@@ -80,7 +88,8 @@ class CheckpointManager:
     # ------------------------------------------------------------ save
     def save(self, step: int, state, *, block: bool = True):
         """Snapshot ``state`` (a tree of tensors) at ``step``."""
-        host = [(_path_str(p), *_to_savable(torch.as_tensor(leaf)))
+        host = [(_path_str(p), *_to_savable(
+            leaf if isinstance(leaf, Sharded) else torch.as_tensor(leaf)))
                 for p, leaf in tree_flatten(state)]
         if self._q is not None and not block:
             self._q.put((step, host))
@@ -146,12 +155,17 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, like=None, step: int | None = None):
+    def restore(self, like=None, step: int | None = None,
+                sharding_tree=None):
         """Restore step ``step`` (the latest by default) into the structure
         of ``like`` (a tree of tensors: each leaf lands on its device, in
         its dtype). Without ``like``, the manifest's own tree: nested
         dicts keyed by the path's parts, CPU tensors in the stored dtypes.
-        Returns (tree, step)."""
+        A ``Sharded`` leaf of ``like`` comes back placed as it is.
+        ``sharding_tree``: a tree shaped as ``like`` of (mesh, spec)
+        pairs (or None for a leaf to restore as above): each such leaf
+        comes back ``Sharded`` on that mesh, in ``like``'s dtype — the
+        elastic restore onto another mesh. Returns (tree, step)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -172,13 +186,41 @@ class CheckpointManager:
                 node[last] = load(ent)
             return tree, step
         by_path = {e["path"]: e for e in manifest["leaves"]}
+        flat = tree_flatten(like)
+        placements = [None] * len(flat)
+        if sharding_tree is not None:
+            placements = _placements(like, sharding_tree)
         out = []
-        for path, leaf in tree_flatten(like):
+        for (path, leaf), sh in zip(flat, placements):
             ent = by_path[_path_str(path)]
             t = load(ent)
             if list(t.shape) != list(leaf.shape):
                 raise ValueError(f"shape mismatch at {ent['path']}: stored "
                                  f"{list(t.shape)}, expected "
                                  f"{list(leaf.shape)}")
-            out.append(t.to(device=leaf.device, dtype=leaf.dtype))
+            if sh is None and isinstance(leaf, Sharded):
+                sh = (leaf.mesh, leaf.spec)
+            if sh is not None:
+                out.append(Sharded.place(t.to(leaf.dtype), *sh))
+            else:
+                out.append(t.to(device=leaf.device, dtype=leaf.dtype))
         return tree_unflatten(like, out), step
+
+
+def _placements(like, sharding_tree) -> list:
+    """The (mesh, spec) of each of ``like``'s leaves, in
+    ``tree_flatten``'s order, from a tree of the same structure whose
+    leaves are (mesh, spec) pairs or None."""
+    out = []
+
+    def walk(node, sh):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], None if sh is None else sh[k])
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, None if sh is None else sh[i])
+        else:
+            out.append(sh)
+    walk(like, sharding_tree)
+    return out

@@ -11,9 +11,13 @@ score matrix. Its products are ``torch.einsum`` calls: the JAX package
 computes them outside any Pallas kernel, so no hand-written kernel is
 due, and no library attention is used.
 
-Not ported here: the reference's sequence-parallel decode over a mesh
-(``_flash_unnormalized``, ``seq_sharded_decode_attention``) and its
-sharding constraints.
+Over a mesh (``rules`` from ``sharding.make_rules`` with the DP rows this
+call computes under ``"_rows"``), a cache whose leaves are ``Sharded``
+takes one of two routes: single-token decode of a global-attention layer
+runs sequence-parallel (:func:`seq_sharded_decode_attention`), anything
+else gathers the row's cache onto the row's device, runs the plain route
+and writes the row's region back into the blocks. The reference's
+sharding constraints have no counterpart (see ``sharding.py``).
 """
 from __future__ import annotations
 
@@ -21,6 +25,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from .sharding import Sharded, dp_axes
 
 NEG_INF = -1e30
 
@@ -132,17 +138,196 @@ def flash_attention(q, k, v, *, q_pos, k_pos, causal: bool,
     return out[:, :Sq]
 
 
-def attention_block(x, p, cfg, *, positions, causal: bool,
+def _flash_unnormalized(q, k, v, mask, scale, chunk: int):
+    """Single-q-block flash returning the raw (acc, m, l): the combinable
+    form of sequence-parallel decode (a partial softmax per KV shard,
+    merged across the "model" entries). q (B, Sq, Kh, G, Dh), k/v (B,
+    Skv, Kh, Dh), mask (B, Sq, Skv) bool; padded keys are masked."""
+    B, Sq, Kh, G, Dh = q.shape
+    Skv = k.shape[1]
+    kc = min(chunk, Skv)
+    nk = -(-Skv // kc)
+    pad = nk * kc - Skv
+    kp = F.pad(k, (0, 0, 0, 0, 0, pad))
+    vp = F.pad(v, (0, 0, 0, 0, 0, pad))
+    mp = F.pad(mask, (0, pad), value=False)
+    acc = torch.zeros((B, Sq, Kh, G, Dh), dtype=q.dtype, device=q.device)
+    m = torch.full((B, Sq, Kh, G), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, Sq, Kh, G), dtype=torch.float32, device=q.device)
+    for j in range(nk):
+        c = slice(j * kc, (j + 1) * kc)
+        a, m2, l2 = _attend_chunk(q, kp[:, c], vp[:, c], mp[:, :, c], scale)
+        m_new = torch.maximum(m, m2)
+        c1, c2 = torch.exp(m - m_new), torch.exp(m2 - m_new)
+        acc = (acc * c1[..., None].to(acc.dtype)
+               + a * c2[..., None].to(a.dtype))
+        l = l * c1 + l2 * c2
+        m = m_new
+    return acc, m, l
+
+
+def seq_shardable(S: int, window, rules, Smax: int) -> bool:
+    """The reference's condition for sequence-parallel decode."""
+    mesh = (rules or {}).get("_mesh")
+    return (S == 1 and window is None and mesh is not None
+            and rules.get("kv_seq") == "model"
+            and Smax % mesh.axis_size("model") == 0)
+
+
+def seq_sharded_decode_attention(q, cache, k_new, v_new, positions, cfg,
+                                 mesh, *, causal=True, rows=None):
+    """Single-token decode against a KV cache whose SEQUENCE axis is
+    sharded over the "model" entries (sequence-parallel serving).
+
+    q: (B, 1, H, Dh) of the DP ``rows`` (default: every row of the mesh
+    for the batch) in order, on the first row's device; cache k / v
+    ``Sharded`` (B, Smax, Kh, Dh) by (batch over DP, "model", None,
+    None), pos (Smax,) by ("model",); k_new / v_new (B, 1, Kh, Dh);
+    positions (1,) absolute. For each row and each of its model entries,
+    on that entry's device: write the slot where it falls inside the
+    entry's range (a device-side select, as the reference's), rope the
+    local keys and take the partial flash over the local slice; the
+    partials then merge on the row's device as the reference's pmax/psum
+    do: m_g = max, corr = exp(m - m_g), l_g = sum(l·corr), acc_g =
+    sum(acc·corr) in fp32, out = acc_g / max(l_g, 1e-30) in q's dtype.
+    The cache is updated in place. Returns (out (B, 1, H, Dh), cache).
+    """
+    B, S, H, Dh = q.shape
+    Kh = k_new.shape[2]
+    G = H // Kh
+    scale = 1.0 / math.sqrt(Dh)
+    K, V, Pc = cache["k"], cache["v"], cache["pos"]
+    Smax = K.shape[1]
+    if K.spec[1:2] != ("model",) or Pc.spec != ("model",):
+        raise ValueError(f"the cache's seq axis is not on 'model': "
+                         f"k {K.spec}, pos {Pc.spec}")
+    if rows is None:
+        rows = mesh.rows(dp_axes(mesh), B)
+    outs, off = [], 0
+    for row in rows:
+        rs = slice(off, off + row.size)
+        off += row.size
+        parts = []
+        for e in row.entries:
+            send = lambda t: mesh.move(t, row.home, e,       # noqa: E731
+                                       "collective-permute")
+            qL, kN, vN, pos = (send(t) for t in (q[rs], k_new[rs],
+                                                 v_new[rs], positions))
+            kC, vC, pC = K.blocks[e], V.blocks[e], Pc.blocks[e]
+            lo, hi = Pc.boxes[e][0]
+            Bl, Sloc = qL.shape[0], hi - lo
+            slot_l = torch.remainder(pos[:1], Smax) - lo
+            inside = (slot_l >= 0) & (slot_l < Sloc)
+            sl = slot_l.clamp(0, Sloc - 1).long()
+            kC.index_copy_(1, sl, torch.where(inside, kN,
+                                              kC.index_select(1, sl)))
+            vC.index_copy_(1, sl, torch.where(inside, vN,
+                                              vC.index_select(1, sl)))
+            pC.index_copy_(0, sl, torch.where(inside, pos[:1].to(pC.dtype),
+                                              pC.index_select(0, sl)))
+            kR = rope(kC, pC, cfg.rope_theta)
+            mask = (pC >= 0)[None, None, :]
+            if causal:
+                mask = mask & (pos[0] >= pC)[None, None, :]
+            mask = mask.expand(Bl, S, Sloc)
+            acc, m, l = _flash_unnormalized(qL.reshape(Bl, S, Kh, G, Dh),
+                                            kR, vC, mask, scale,
+                                            cfg.attn_chunk)
+            parts.append([mesh.move(t, e, row.home, "all-reduce")
+                          for t in (acc, m, l)])
+        m_g = parts[0][1]
+        for _, m, _ in parts[1:]:
+            m_g = torch.maximum(m_g, m)
+        l_g = acc_g = None
+        for acc, m, l in parts:
+            corr = torch.exp(m - m_g)
+            lc = l * corr
+            ac = (acc * corr[..., None].to(acc.dtype)).float()
+            l_g = lc if l_g is None else l_g + lc
+            acc_g = ac if acc_g is None else acc_g + ac
+        out = (acc_g / l_g.clamp_min(1e-30)[..., None]).to(q.dtype)
+        outs.append(out.reshape(-1, S, H, Dh))
+    out = outs[0] if len(outs) == 1 else torch.cat(
+        [mesh.move(o, r.home, rows[0].home, "all-gather")
+         for o, r in zip(outs, rows)])
+    return out, cache
+
+
+def _attend_sharded_cache(q, k, v, cache, positions, cfg, rules, causal,
+                          window):
+    """Attention of ``rules["_rows"]`` over a cache of ``Sharded`` leaves:
+    the sequence-parallel decode where the reference takes it, else each
+    row's region of the cache gathered onto the row's device, the plain
+    route, and the region written back to the row's entries (its new
+    slots among it)."""
+    mesh, rows = rules["_mesh"], rules["_rows"]
+    if seq_shardable(q.shape[1], window, rules, cache["k"].shape[1]):
+        return seq_sharded_decode_attention(q, cache, k, v, positions, cfg,
+                                            mesh, causal=causal,
+                                            rows=rows)[0]
+    outs, off = [], 0
+    for row in rows:
+        rs = slice(off, off + row.size)
+        off += row.size
+        regions = {n: ((row.start, row.start + row.size),)
+                   + tuple((0, d) for d in cache[n].shape[1:])
+                   for n in ("k", "v")}
+        regions["pos"] = None
+        plain = {n: cache[n].read(row.home, regions[n], prefer=row.entries)
+                 for n in ("k", "v", "pos")}
+        outs.append(_attend_cache(q[rs], k[rs], v[rs], plain, positions,
+                                  cfg, causal, window))
+        for n in ("k", "v", "pos"):
+            cache[n].write(plain[n], row.home, regions[n],
+                           entries=row.entries)
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+def _attend_cache(q, k, v, cache, positions, cfg, causal, window):
+    """Attention over a plain cache dict, updated in place."""
+    ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
+    S, Smax = q.shape[1], ck.shape[1]
+    if S == 1:
+        # Single-token decode: write-then-attend is exact (the slot
+        # written IS the current position; a ring overwrite only evicts
+        # pos - Smax, which the window predicate masks anyway).
+        _write(ck, cv, cpos, k, v, positions)
+        return flash_attention(q, rope(ck, cpos, cfg.rope_theta), cv,
+                               q_pos=positions, k_pos=cpos, causal=causal,
+                               window=window, chunk=cfg.attn_chunk)
+    # Chunked prefill: attend BEFORE writing (a ring write of a
+    # multi-token chunk would clobber keys that early queries of the
+    # chunk still need), over concat(cache, fresh); stale ring entries
+    # are masked by the window, empty slots by pos == -1.
+    pos_all = torch.cat([cpos, positions])
+    k_roped = rope(torch.cat([ck, k], dim=1), pos_all, cfg.rope_theta)
+    out = flash_attention(q, k_roped, torch.cat([cv, v], dim=1),
+                          q_pos=positions, k_pos=pos_all, causal=causal,
+                          window=window, chunk=cfg.attn_chunk)
+    # Only the last Smax positions are written, so no slot is written
+    # twice: the reference's scatter writes every position and a ring
+    # slot more than once past the window, which the CPU resolves as
+    # last-write-wins but a CUDA index-put leaves in no defined order.
+    # On the CPU both give the same cache.
+    w = min(S, Smax)
+    _write(ck, cv, cpos, k[:, S - w:], v[:, S - w:], positions[S - w:])
+    return out
+
+
+def attention_block(x, p, cfg, rules=None, *, positions, causal: bool,
                     window: int | None, cache=None):
     """Pre-norm GQA attention with an optional KV cache (decode).
 
     p: dict(wq (d, H*hd), wk/wv (d, Kh*hd), wo_attn (H*hd, d), norm (d,)).
     cache: None | dict(k (B, Smax, Kh, hd) UNROPED, v likewise, pos
-    (Smax,) absolute positions, -1 = empty). Windowed layers use a ring
-    buffer (Smax == window), global layers a linear one; K is roped at
-    use time from the stored positions, so ring overwrites stay correct.
-    The cache's tensors are updated IN PLACE (the reference returns new
-    arrays); the returned dict holds them. Returns (out, new_cache).
+    (Smax,) absolute positions, -1 = empty), plain tensors or, over a
+    mesh, ``Sharded`` (see the module docstring). Windowed layers use a
+    ring buffer (Smax == window), global layers a linear one; K is roped
+    at use time from the stored positions, so ring overwrites stay
+    correct. The cache's tensors are updated IN PLACE (the reference
+    returns new arrays); the returned dict holds them. Returns (out,
+    new_cache).
     """
     B, S, _ = x.shape
     H, Kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -159,38 +344,13 @@ def attention_block(x, p, cfg, *, positions, causal: bool,
                               chunk=cfg.attn_chunk,
                               causal_skip=cfg.causal_skip)
         new_cache = None
+    elif isinstance(cache["k"], Sharded):
+        out = _attend_sharded_cache(q, k, v, cache, positions, cfg, rules,
+                                    causal, window)
+        new_cache = cache
     else:
-        ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
-        Smax = ck.shape[1]
-        if S == 1:
-            # Single-token decode: write-then-attend is exact (the slot
-            # written IS the current position; a ring overwrite only
-            # evicts pos - Smax, which the window predicate masks anyway).
-            _write(ck, cv, cpos, k, v, positions)
-            out = flash_attention(q, rope(ck, cpos, cfg.rope_theta), cv,
-                                  q_pos=positions, k_pos=cpos, causal=causal,
-                                  window=window, chunk=cfg.attn_chunk)
-        else:
-            # Chunked prefill: attend BEFORE writing (a ring write of a
-            # multi-token chunk would clobber keys that early queries of
-            # the chunk still need), over concat(cache, fresh); stale ring
-            # entries are masked by the window, empty slots by pos == -1.
-            pos_all = torch.cat([cpos, positions])
-            k_roped = rope(torch.cat([ck, k], dim=1), pos_all,
-                           cfg.rope_theta)
-            out = flash_attention(q, k_roped, torch.cat([cv, v], dim=1),
-                                  q_pos=positions, k_pos=pos_all,
-                                  causal=causal, window=window,
-                                  chunk=cfg.attn_chunk)
-            # Only the last Smax positions are written, so no slot is
-            # written twice: the reference's scatter writes every position
-            # and a ring slot more than once past the window, which the
-            # CPU resolves as last-write-wins but a CUDA index-put leaves
-            # in no defined order. On the CPU both give the same cache.
-            w = min(S, Smax)
-            _write(ck, cv, cpos, k[:, S - w:], v[:, S - w:],
-                   positions[S - w:])
-        new_cache = {"k": ck, "v": cv, "pos": cpos}
+        out = _attend_cache(q, k, v, cache, positions, cfg, causal, window)
+        new_cache = cache
     out = out.reshape(B, S, H * hd) @ p["wo_attn"]
     return out, new_cache
 
@@ -236,7 +396,7 @@ def top_k(x, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def moe_block(x, p, cfg):
+def moe_block(x, p, cfg, stats=None):
     """Dropped-token top-k MoE with sort-based dispatch.
 
     Routing and capacity are per routing group: per batch row, or the
@@ -246,7 +406,9 @@ def moe_block(x, p, cfg):
     the capacity drops; the experts run on (G, E, C, d), and the weighted
     outputs are summed back per token with ``index_add_`` (on CUDA its
     float sum order is not fixed: the K terms of a token may add in
-    another order than on the CPU). Returns (out, aux_loss).
+    another order than on the CPU). Returns (out, aux_loss); with a list
+    ``stats``, also appends the groups' (me, ce) (G, E), from which a
+    mesh's DP rows rebuild the global batch's aux loss.
     """
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.experts_per_token
@@ -293,4 +455,6 @@ def moe_block(x, p, cfg):
     out = ye.new_zeros((groups * Tg, d)).index_add_(
         0, tok, y_rec.reshape(-1, d))
     aux = (me.mean(0) * ce.mean(0)).sum()
+    if stats is not None:
+        stats.append((me, ce))
     return out.reshape(B, S, d), aux

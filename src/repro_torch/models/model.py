@@ -26,6 +26,16 @@ for RG-LRU, (C, n, m) for mLSTM and (c, n, h, m) for sLSTM. Training
 runs the full forward (no cache) under autograd; with ``cfg.remat`` each
 layer is recomputed in the backward pass, as the reference remats each
 pattern repeat.
+
+Over a mesh (``rules`` from ``sharding.make_rules``), ``forward``,
+``prefill``, ``decode_step``, ``loss_fn`` and ``train_step_fn`` run each
+DP row's slice of the batch on the row's first entry. The model is a
+:class:`ShardedLM` (parameters as ``Sharded`` blocks; a row gathers one
+layer at a time and runs the layer's :class:`Block` through
+``torch.func.functional_call``) or an ``LM`` (its parameters then serve
+every row, as the reference's replicated params do); the cache's leaves
+are ``Sharded`` by ``sharding.cache_spec_tree``. Without rules nothing
+changes.
 """
 from __future__ import annotations
 
@@ -38,6 +48,7 @@ from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..util import resolve_device
+from . import sharding as shd
 from .config import ModelConfig
 from .layers import attention_block, mlp_block, moe_block, norm
 from .recurrent import mlstm_block, rglru_block, slstm_block
@@ -102,8 +113,9 @@ class Attention(_Sublayer):
         self.cfg = cfg
         self.window = cfg.window if kind == "local_attn" else None
 
-    def forward(self, x, *, positions, cache=None):
-        return attention_block(x, self.tree(), self.cfg, positions=positions,
+    def forward(self, x, *, positions, cache=None, rules=None):
+        return attention_block(x, self.tree(), self.cfg, rules,
+                               positions=positions,
                                causal=not self.cfg.is_encoder,
                                window=self.window, cache=cache)
 
@@ -126,7 +138,7 @@ class RGLRU(_Sublayer):
             "w_out": _w((dr, d), dt, out_scale)}, device)
         self.cfg = cfg
 
-    def forward(self, x, *, positions, cache=None):
+    def forward(self, x, *, positions, cache=None, rules=None):
         return rglru_block(x, self.tree(), self.cfg, state=cache)
 
 
@@ -147,7 +159,7 @@ class MLSTM(_Sublayer):
             "w_out": _w((H * hd, d), dt, out_scale)}, device)
         self.cfg = cfg
 
-    def forward(self, x, *, positions, cache=None):
+    def forward(self, x, *, positions, cache=None, rules=None):
         return mlstm_block(x, self.tree(), self.cfg, state=cache)
 
 
@@ -167,7 +179,7 @@ class SLSTM(_Sublayer):
             "w_out": _w((H * hd, d), dt, out_scale)}, device)
         self.cfg = cfg
 
-    def forward(self, x, *, positions, cache=None):
+    def forward(self, x, *, positions, cache=None, rules=None):
         return slstm_block(x, self.tree(), self.cfg, state=cache)
 
 
@@ -203,8 +215,8 @@ class MoE(_Sublayer):
         super().__init__(spec, device)
         self.cfg = cfg
 
-    def forward(self, x):
-        return moe_block(x, self.tree(), self.cfg)
+    def forward(self, x, stats=None):
+        return moe_block(x, self.tree(), self.cfg, stats)
 
 
 MIXERS = {"attn": Attention, "local_attn": Attention, "rglru": RGLRU,
@@ -234,13 +246,14 @@ class Block(nn.Module):
         keys = (self.mixer_key,) + ((self.ffn_key,) if self.ffn_key else ())
         return [(k, getattr(self, k)) for k in keys]
 
-    def forward(self, x, *, positions, cache=None):
+    def forward(self, x, *, positions, cache=None, rules=None,
+                moe_stats=None):
         mix, new_c = getattr(self, self.mixer_key)(x, positions=positions,
-                                                   cache=cache)
+                                                   cache=cache, rules=rules)
         x = x + mix
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if self.ffn_key == "moe":
-            y, aux = self.moe(x)
+            y, aux = self.moe(x, moe_stats)
             x = x + y
         elif self.ffn_key == "mlp":
             x = x + self.mlp(x)
@@ -385,53 +398,295 @@ def _put(dst: torch.Tensor, a) -> None:
 
 # ------------------------------------------------------------ cache
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device=None) -> list:
+               device=None, rules=None) -> list:
     """Decode cache, one entry per layer with the reference's leaves:
     attention dict(k, v (B, Smax, Kh, hd) in the model dtype, pos (Smax,)
     int32 = -1) with Smax = min(window or max_len, max_len); RG-LRU
     dict(conv (B, W-1, Dr), h (B, Dr)) fp32; mLSTM (C, n, m) and sLSTM
-    (c, n, h, m) fp32 with m = -1e30."""
-    dev = resolve_device(device)
+    (c, n, h, m) fp32 with m = -1e30. With ``rules`` over a mesh, every
+    leaf is ``Sharded`` by ``sharding.cache_spec_tree`` (``device`` is
+    then unused)."""
+    mesh = (rules or {}).get("_mesh")
+    dev = None if mesh is not None else resolve_device(device)
     Kh, hd, H = cfg.n_kv_heads, cfg.hd, cfg.n_heads
     dt, f32 = torch_dtype(cfg), torch.float32
 
-    def zeros(*shape, dtype=f32):
-        return torch.zeros(shape, dtype=dtype, device=dev)
+    def leaf(shape, fill=0.0, dtype=f32):
+        return (tuple(shape), dtype, fill)
 
     def block_cache(kind: str):
         if kind in ("attn", "local_attn"):
             Smax = cfg.window if (kind == "local_attn" and cfg.window) \
                 else max_len
             Smax = min(Smax, max_len)
-            return {"k": zeros(batch, Smax, Kh, hd, dtype=dt),
-                    "v": zeros(batch, Smax, Kh, hd, dtype=dt),
-                    "pos": torch.full((Smax,), -1, dtype=torch.int32,
-                                      device=dev)}
+            return {"k": leaf((batch, Smax, Kh, hd), dtype=dt),
+                    "v": leaf((batch, Smax, Kh, hd), dtype=dt),
+                    "pos": leaf((Smax,), -1, torch.int32)}
         if kind == "rglru":
             dr = cfg.rnn_width or cfg.d_model
-            return {"conv": zeros(batch, cfg.conv_width - 1, dr),
-                    "h": zeros(batch, dr)}
+            return {"conv": leaf((batch, cfg.conv_width - 1, dr)),
+                    "h": leaf((batch, dr))}
         if kind == "mlstm":
-            return (zeros(batch, H, hd, hd), zeros(batch, H, hd),
-                    zeros(batch, H) - 1e30)
+            return (leaf((batch, H, hd, hd)), leaf((batch, H, hd)),
+                    leaf((batch, H), -1e30))
         if kind == "slstm":
-            z = zeros(batch, H, hd)
-            return (z, z.clone(), z.clone(), z - 1e30)
+            z = leaf((batch, H, hd))
+            return (z, z, z, leaf((batch, H, hd), -1e30))
         raise ValueError(kind)
 
-    return [block_cache(layer_kind(cfg, i)) for i in range(cfg.n_layers)]
+    leaves = [block_cache(layer_kind(cfg, i)) for i in range(cfg.n_layers)]
+    if mesh is None:
+        def make(c):
+            shape, dtype, fill = c
+            return torch.full(shape, fill, dtype=dtype, device=dev)
+        return _map_cache(make, leaves)
+    specs = shd.cache_spec_tree(_map_cache(
+        lambda c: torch.empty(c[0], dtype=c[1], device="meta"), leaves),
+        cfg, rules)
+    return [_map_cache(lambda c, s: shd.Sharded.empty(
+        c[0], c[1], mesh, s, fill=c[2]), lc, ls)
+        for lc, ls in zip(leaves, specs)]
+
+
+def _map_cache(fn, cache, *more):
+    """``fn`` over a cache's leaves (a list of dicts / tuples per layer,
+    or one layer's dict / tuple), keeping its structure."""
+    if isinstance(cache, list):
+        return [_map_cache(fn, c, *(m[i] for m in more))
+                for i, c in enumerate(cache)]
+    if isinstance(cache, dict):
+        return {k: fn(v, *(m[k] for m in more)) for k, v in cache.items()}
+    return type(cache)(fn(v, *(m[i] for m in more))
+                       for i, v in enumerate(cache))
+
+
+# ------------------------------------------------------------ meshes
+class ShardedLM:
+    """An LM whose parameters live as ``Sharded`` blocks on a mesh: a
+    skeleton ``LM`` on "meta" (its modules run through
+    ``functional_call``) and the blocks by parameter name, in the
+    model's order. ``rules`` (default ``make_rules(cfg, mesh)``) are the
+    ones the blocks were placed by."""
+
+    def __init__(self, cfg: ModelConfig, params: dict, rules=None):
+        self.cfg = cfg
+        self.skeleton = LM(cfg, "meta")
+        self.params = {n: params[n]
+                       for n, _ in self.skeleton.named_parameters()}
+        mesh = next(iter(self.params.values())).mesh
+        self.rules = rules if rules is not None else shd.make_rules(cfg,
+                                                                    mesh)
+
+    @classmethod
+    def place(cls, model: LM, mesh, rules=None) -> "ShardedLM":
+        """``model``'s parameters cut into blocks on ``mesh``."""
+        rules = rules if rules is not None else shd.make_rules(model.cfg,
+                                                               mesh)
+        return cls(model.cfg, shd.shard_params(model, model.cfg, mesh,
+                                               rules), rules)
+
+    @property
+    def mesh(self):
+        return self.rules["_mesh"]
+
+    def named_parameters(self):
+        return iter(self.params.items())
+
+
+class _Gather(torch.autograd.Function):
+    """A parameter's blocks gathered onto a row's first entry; backward
+    adds the row's gradient, cut by the fp32 buffers' spec, into each
+    target entry's buffer (a reduce-scatter over the rows, an all-reduce
+    for a replicated buffer). ``anchor`` is a 0-d tensor that requires
+    grad, so the gathered tensor is part of the graph."""
+
+    @staticmethod
+    def forward(ctx, anchor, sharded, row, buf, targets):
+        ctx.row, ctx.buf, ctx.targets = row, buf, targets
+        return sharded.read(row.home, prefer=row.entries)
+
+    @staticmethod
+    def backward(ctx, g):
+        buf, row = ctx.buf, ctx.row
+        kind = ("reduce-scatter" if any(buf.spec) else "all-reduce")
+        zero = (0,) * buf.ndim
+        for e, box in enumerate(buf.boxes):
+            if e in ctx.targets:
+                buf.blocks[e].add_(buf.mesh.move(g[shd._index(box, zero)],
+                                                 row.home, e, kind))
+            else:       # a dry run: another device's share, counted
+                buf.mesh.count(kind, buf.block_numel(e) * g.element_size(),
+                               row.home, e)
+        return None, None, None, None, None
+
+
+class _Grad:
+    """Where a mesh loss's gradients go: fp32 buffers by name (``Sharded``
+    by the optimizer state's specs) and the entries whose buffers take
+    them (a dry run keeps only its own)."""
+
+    def __init__(self, bufs: dict, targets=None):
+        self.bufs = bufs
+        self.targets = targets
+
+
+def _row_params(model, row, grad: _Grad | None):
+    """A getter of parameters by name on ``row``'s first entry."""
+    anchor = None
+    if grad is not None:
+        anchor = torch.zeros((), device=row.device, requires_grad=True)
+
+    def get(name):
+        if not isinstance(model, ShardedLM):
+            if grad is not None:
+                raise ValueError("a mesh training step needs a ShardedLM")
+            return model.get_parameter(name).to(row.device)
+        sh = model.params[name]
+        if grad is None:
+            return sh.read(row.home, prefer=row.entries)
+        targets = range(sh.mesh.size) if grad.targets is None \
+            else grad.targets
+        return _Gather.apply(anchor, sh, row, grad.bufs[name], targets)
+    return get
+
+
+def _take(x, lo: int, n: int, row, kind="all-to-all"):
+    """Rows [lo, lo + n) of a batch leaf on ``row``'s device: a slice of a
+    plain tensor, or the region of a ``Sharded`` one (held by the row
+    when the batch was placed by ``batch_sharding``)."""
+    if isinstance(x, shd.Sharded):
+        region = ((lo, lo + n),) + tuple((0, d) for d in x.shape[1:])
+        return x.read(row.home, region, kind=kind, prefer=row.entries)
+    return x[lo:lo + n].to(row.device)
+
+
+def _skeleton(model):
+    return model.skeleton if isinstance(model, ShardedLM) else model
+
+
+def _mesh_rows(model, rules, B: int):
+    """The DP rows a mesh call computes: ``rules["_rows"]`` when given (a
+    dry run's one row), else every row of the mesh for batch B."""
+    if rules.get("_rows") is not None:
+        return list(rules["_rows"])
+    return rules["_mesh"].rows(shd._names(rules["batch"]), B)
+
+
+def _row_hidden(model, row, x_in, positions, cache, rules, get):
+    """One DP row through the model: (hidden (B_r, S, d), per layer the
+    MoE (me, ce) of the row, or () for a layer without MoE)."""
+    cfg = model.cfg
+    dt = torch_dtype(cfg)
+    x = get("embedding")[x_in].to(dt) if x_in.ndim == 2 else x_in.to(dt)
+    rules_r = {**rules, "_rows": (row,)}
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
+    stats = []
+    for i, layer in enumerate(_skeleton(model).layers):
+        prefix = f"layers.{i}."
+        local = [n for n, _ in layer.named_parameters()]
+        c = None if cache is None else cache[i]
+        plain = None
+        if c is not None and layer.kind not in ("attn", "local_attn"):
+            # recurrent states: the row's region, updated off the mesh
+            plain = _map_cache(lambda t: t.read(row.home, (
+                (row.start, row.start + row.size),)
+                + tuple((0, d) for d in t.shape[1:]),
+                prefer=row.entries), c)
+
+        def run(x, layer=layer, prefix=prefix, local=local,
+                c=c if plain is None else plain):
+            params = {n: get(prefix + n) for n in local}
+            st = []
+            y, nc, _ = torch.func.functional_call(
+                layer, params, (x,), {"positions": positions, "cache": c,
+                                      "rules": rules_r, "moe_stats": st})
+            return (y, nc, *[t for pair in st for t in pair])
+
+        if remat:
+            y, _, *st = checkpoint(run, x, use_reentrant=False)
+        else:
+            y, nc, *st = run(x)
+            if plain is not None:
+                _map_cache(lambda sh, t: sh.write(t, row.home, (
+                    (row.start, row.start + row.size),)
+                    + tuple((0, d) for d in sh.shape[1:]),
+                    entries=row.entries), c, nc)
+        x = y
+        stats.append(tuple(st))
+    return norm(x, get("final_norm"), cfg.norm_type), stats
+
+
+def _mesh_aux(row_stats, device, mesh, rows):
+    """The global batch's MoE aux loss from the rows' (me, ce): per MoE
+    layer, the means over all the rows' groups, as the unsharded
+    ``moe_block`` takes them over its groups."""
+    aux = torch.zeros((), dtype=torch.float32, device=device)
+    for layer in zip(*row_stats):
+        if not layer[0]:
+            continue
+        me = ce = None
+        G = 0
+        for (me_r, ce_r), row in zip(layer, rows):
+            a = mesh.move(me_r.sum(0), row.home, rows[0].home, "all-reduce")
+            b = mesh.move(ce_r.sum(0), row.home, rows[0].home, "all-reduce")
+            me = a if me is None else me + a
+            ce = b if ce is None else ce + b
+            G += me_r.shape[0]
+        aux = aux + ((me / G) * (ce / G)).sum()
+    return aux
+
+
+def _head(model, get):
+    return get("embedding").T if model.cfg.tie_embeddings else get("lm_head")
+
+
+def _mesh_forward(model, inputs, rules, positions, cache, grad=None,
+                  offset=0, B=None):
+    """Each row's (hidden, MoE stats, getter) for rows [offset, offset +
+    B) of ``inputs`` (all of them by default)."""
+    B = inputs.shape[0] if B is None else B
+    out = []
+    for row in _mesh_rows(model, rules, B):
+        x_in = _take(inputs, offset + row.start, row.size, row)
+        get = _row_params(model, row, grad)
+        h, st = _row_hidden(model, row, x_in, positions.to(row.device),
+                            cache, rules, get)
+        out.append((row, h, st, get))
+    return out
+
+
+def _mesh_gather_rows(mesh, rows, ts):
+    """The rows' tensors concatenated on the first row's device."""
+    if len(ts) == 1:
+        return ts[0]
+    return torch.cat([mesh.move(t, r.home, rows[0].home, "all-gather")
+                      for t, r in zip(ts, rows)])
 
 
 # ------------------------------------------------------------ forward
-def forward(model: LM, inputs, *, positions=None, cache=None):
+def forward(model, inputs, rules=None, *, positions=None, cache=None):
     """Returns (hidden (B,S,d), new_cache, aux_loss).
 
     inputs: int tokens (B, S) or float embeddings (B, S, d) (stub
     frontends). cache: from :func:`init_cache` (positions required), or
     None. Without a cache and with grad enabled, ``cfg.remat`` wraps each
-    layer in a non-reentrant activation checkpoint.
+    layer in a non-reentrant activation checkpoint. With ``rules`` over a
+    mesh, each DP row runs its slice (see the module docstring); the
+    hidden states come back on the first row's entry.
     """
     cfg = model.cfg
+    if (rules or {}).get("_mesh") is not None:
+        S = inputs.shape[1]
+        if positions is None:
+            positions = torch.arange(S, dtype=torch.int32,
+                                     device=rules["_mesh"].devices[0])
+        res = _mesh_forward(model, inputs, rules, positions, cache)
+        rows = [r for r, *_ in res]
+        mesh = rules["_mesh"]
+        hidden = _mesh_gather_rows(mesh, rows, [h for _, h, _, _ in res])
+        aux = _mesh_aux([st for _, _, st, _ in res], hidden.device, mesh,
+                        rows)
+        return hidden, cache, aux
     dt = torch_dtype(cfg)
     if inputs.ndim == 2:
         # gather, then cast: the reference casts the whole table first,
@@ -458,38 +713,44 @@ def forward(model: LM, inputs, *, positions=None, cache=None):
     return norm(x, model.final_norm, cfg.norm_type), new_cache, aux_total
 
 
+def _logits(model, rules, tokens, positions, cache):
+    """The last position's fp32 logits (B, V): each row's on its device
+    over a mesh, gathered on the first row's."""
+    if (rules or {}).get("_mesh") is None:
+        hidden, new_cache, _ = forward(model, tokens, positions=positions,
+                                       cache=cache)
+        return hidden[:, -1].float() @ model.head(), new_cache
+    res = _mesh_forward(model, tokens, rules, positions, cache)
+    rows = [r for r, *_ in res]
+    logits = [h[:, -1].float() @ _head(model, get).float()
+              for _, h, _, get in res]
+    return _mesh_gather_rows(rules["_mesh"], rows, logits), cache
+
+
 # ------------------------------------------------------------ decode
 @torch.no_grad()
-def decode_step(model: LM, cache: list, tokens, pos):
+def decode_step(model, cache: list, tokens, pos, rules=None):
     """One decode step: tokens (B, 1) int, pos the absolute position (an
     int or a 0-d tensor). Returns (logits (B, V) fp32, new_cache)."""
-    positions = torch.arange(1, dtype=torch.int32, device=tokens.device) + pos
-    hidden, new_cache, _ = forward(model, tokens, positions=positions,
-                                   cache=cache)
-    return hidden[:, -1].float() @ model.head(), new_cache
+    dev = tokens.device if not isinstance(tokens, shd.Sharded) \
+        else tokens.mesh.devices[0]
+    positions = torch.arange(1, dtype=torch.int32, device=dev) + pos
+    return _logits(model, rules, tokens, positions, cache)
 
 
 @torch.no_grad()
-def prefill(model: LM, tokens, cache: list):
+def prefill(model, tokens, cache: list, rules=None):
     """Prefill the cache with a prompt (B, S); returns (last_logits, cache)."""
-    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
-                             device=tokens.device)
-    hidden, new_cache, _ = forward(model, tokens, positions=positions,
-                                   cache=cache)
-    return hidden[:, -1].float() @ model.head(), new_cache
+    dev = tokens.device if not isinstance(tokens, shd.Sharded) \
+        else tokens.mesh.devices[0]
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32, device=dev)
+    return _logits(model, rules, tokens, positions, cache)
 
 
 # ------------------------------------------------------------ loss
-def chunked_ce(hidden, W, targets, cfg: ModelConfig):
-    """Cross-entropy over sequence chunks of ``cfg.ce_chunk``, so the
-    (B, S, V) logits never exist at once in the forward pass.
-
-    hidden (B, S, d) in the model dtype; W (d, V) fp32; targets (B, S)
-    int (-1 = ignore; the tail of the last chunk is padded with -1).
-    Logits are fp32; the loss adds the z-loss ``Z_LOSS_WEIGHT · Σ lse² /
-    n`` with n = max(count, 1). The chunks add in order, as the
-    reference's scan does. Returns (mean loss fp32, token count int32).
-    """
+def _ce_sums(hidden, W, targets, cfg: ModelConfig):
+    """The chunked CE's sums: (Σ (lse - label logit), Σ lse², valid token
+    count) over the valid targets, a ``ce_chunk`` at a time."""
     B, S, _ = hidden.shape
     ck = min(cfg.ce_chunk, S)
     nc = -(-S // ck)
@@ -509,25 +770,88 @@ def chunked_ce(hidden, W, targets, cfg: ModelConfig):
         loss = loss + torch.where(valid, lse - lab, 0.0).sum()
         zloss = zloss + torch.where(valid, lse.square(), 0.0).sum()
         count = count + valid.sum(dtype=torch.int32)
+    return loss, zloss, count
+
+
+def _ce_mean(loss, zloss, count):
     n = count.clamp_min(1)
-    return loss / n + Z_LOSS_WEIGHT * zloss / n, count
+    return loss / n + Z_LOSS_WEIGHT * zloss / n
 
 
-def loss_fn(model: LM, batch: dict):
+def chunked_ce(hidden, W, targets, cfg: ModelConfig):
+    """Cross-entropy over sequence chunks of ``cfg.ce_chunk``, so the
+    (B, S, V) logits never exist at once in the forward pass.
+
+    hidden (B, S, d) in the model dtype; W (d, V) fp32; targets (B, S)
+    int (-1 = ignore; the tail of the last chunk is padded with -1).
+    Logits are fp32; the loss adds the z-loss ``Z_LOSS_WEIGHT · Σ lse² /
+    n`` with n = max(count, 1). The chunks add in order, as the
+    reference's scan does. Returns (mean loss fp32, token count int32).
+    """
+    loss, zloss, count = _ce_sums(hidden, W, targets, cfg)
+    return _ce_mean(loss, zloss, count), count
+
+
+def _mesh_loss(model, batch, rules, grad=None, offset=0, B=None):
+    """The loss of rows [offset, offset + B) of a global batch over a
+    mesh: each row's CE sums and MoE statistics, all-reduced on the first
+    row's entry into the unsharded loss of those rows."""
+    mesh = rules["_mesh"]
+    S = batch["targets"].shape[1]
+    res = _mesh_forward(model, batch["inputs"], rules, torch.arange(
+        S, dtype=torch.int32, device=mesh.devices[0]), None, grad, offset, B)
+    rows = [r for r, *_ in res]
+    home = rows[0].home
+    sums = None
+    for row, h, _, get in res:
+        t = _take(batch["targets"], offset + row.start, row.size, row)
+        part = [mesh.move(v, row.home, home, "all-reduce")
+                for v in _ce_sums(h, _head(model, get), t, model.cfg)]
+        sums = part if sums is None else [a + b for a, b in zip(sums, part)]
+    ce = _ce_mean(*sums)
+    aux = _mesh_aux([st for _, _, st, _ in res], ce.device, mesh, rows)
+    loss = ce + MOE_AUX_WEIGHT * aux
+    return loss, {"ce": ce, "aux": aux, "tokens": sums[2]}
+
+
+def loss_fn(model, batch: dict, rules=None):
     """batch: dict(inputs (B, S) int or (B, S, d) float, targets (B, S)
     int). Returns (loss, metrics dict(ce, aux, tokens)): the chunked CE
-    plus ``MOE_AUX_WEIGHT`` times the MoE load-balancing loss."""
+    plus ``MOE_AUX_WEIGHT`` times the MoE load-balancing loss. Over a
+    mesh, the rows' sums are all-reduced into the same loss (the
+    gradient then flows to the parameters of an ``LM``, not to the
+    blocks of a ``ShardedLM``: that is ``train_step_fn``'s)."""
+    if (rules or {}).get("_mesh") is not None:
+        return _mesh_loss(model, batch, rules)
     hidden, _, aux = forward(model, batch["inputs"])
     ce, count = chunked_ce(hidden, model.head(), batch["targets"], model.cfg)
     loss = ce + MOE_AUX_WEIGHT * aux
     return loss, {"ce": ce, "aux": aux, "tokens": count}
 
 
-def train_step_fn(model: LM, batch: dict):
+def grad_buffers(model: ShardedLM, specs=None, entries=None) -> dict:
+    """fp32 zero buffers by name for a ShardedLM's gradients, ``Sharded``
+    by ``specs`` (default: the parameters' own), with blocks on every
+    entry or only on ``entries``."""
+    return {n: shd.Sharded.empty(p.shape, torch.float32, p.mesh,
+                                 p.spec if specs is None else specs[n],
+                                 fill=0.0, entries=entries)
+            for n, p in reference_params(model).items()}
+
+
+def train_step_fn(model, batch: dict, rules=None):
     """Plain grad step (no optimizer): returns (loss, metrics, grads), the
     grads keyed by parameter name in :func:`reference_params`' order and
     in each parameter's dtype; a parameter the loss does not reach (the
-    embedding under float inputs) gets zeros, as ``jax.grad`` gives."""
+    embedding under float inputs) gets zeros, as ``jax.grad`` gives.
+    Over a mesh the model is a :class:`ShardedLM` and the grads are fp32
+    ``Sharded`` buffers by the parameters' specs."""
+    if (rules or {}).get("_mesh") is not None:
+        grads = grad_buffers(model)
+        loss, metrics = _mesh_loss(model, batch, rules, _Grad(grads))
+        loss.backward()
+        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+                grads)
     params = reference_params(model)
     loss, metrics = loss_fn(model, batch)
     grads = torch.autograd.grad(loss, list(params.values()),

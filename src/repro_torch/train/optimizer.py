@@ -93,7 +93,8 @@ def reference_decay_mask(model: LM) -> dict:
 
 def _adamw_leaf(g, m, v, w, p, *, cfg, scale, b1c, b2c, lr, wd):
     """The reference's update, op for op, on one leaf: m, v, w (the
-    master) and p (the compute param) in place, in two scratch buffers."""
+    master) and p (the compute param; None to leave it) in place, in two
+    scratch buffers."""
     g = g.float() * scale
     tmp = torch.mul(g, 1 - cfg.b1)
     m.mul_(cfg.b1).add_(tmp)
@@ -104,7 +105,8 @@ def _adamw_leaf(g, m, v, w, p, *, cfg, scale, b1c, b2c, lr, wd):
     if wd:
         upd.add_(torch.mul(w, cfg.weight_decay, out=den))
     w.sub_(upd.mul_(lr))
-    p.copy_(w)
+    if p is not None:
+        p.copy_(w)
 
 
 @torch.no_grad()

@@ -6,10 +6,17 @@ bounds them), takes each one's grads with ``torch.autograd.grad`` and
 adds them into fp32 accumulators — not into ``param.grad``, which would
 accumulate in the parameter's dtype (bf16 for the blocks).
 
-The reference's meshes (``mesh=``/``rules=``, ``batch_sharding``) are
-not ported yet: ``make_train_step`` and ``init_train_state`` raise when
-given one. Gradient compression is, as in the reference, an explicit-DP
-feature of ``compression.make_compressed_dp_step``, not of this step.
+Over a mesh (``mesh=`` / ``rules=``), the state's model is a
+``ShardedLM`` and its masters and moments are ``Sharded`` by the FSDP
+spec tree; each DP row runs its slice of every microbatch on its first
+entry, gathering one layer's parameters at a time, and the gradients go
+back to fp32 buffers cut like the masters (the reduce-scatter). AdamW
+then runs on the blocks: it is elementwise, so each block updates as the
+unsharded leaf's slice would; the one sum across blocks is the global
+norm. ZeRO-1 (``make_rules(fsdp=False)``) keeps the compute parameters
+whole over "data" and the masters split. Gradient compression is, as in
+the reference, an explicit-DP feature of
+``compression.make_compressed_dp_step``, not of this step.
 """
 from __future__ import annotations
 
@@ -18,12 +25,13 @@ from functools import cached_property
 
 import torch
 
-from ..models.model import (LM, init_params, params_from_reference,
-                            reference_leaf, reference_params, train_step_fn,
-                            _put)
+from ..models import sharding as shd
+from ..models.model import (LM, ShardedLM, _Grad, _mesh_loss, _put,
+                            grad_buffers, init_params, params_from_reference,
+                            reference_leaf, reference_params, train_step_fn)
 from ..util import resolve_device
-from .optimizer import (AdamWConfig, adamw_init, adamw_update,
-                        reference_decay_mask)
+from .optimizer import (AdamWConfig, _adamw_leaf, adamw_init, adamw_update,
+                        reference_decay_mask, warmup_cosine)
 
 
 @dataclass(frozen=True)
@@ -54,42 +62,136 @@ class TrainState:
 
     def tree(self) -> dict:
         """The state as a nested dict of tensors (what a checkpoint
-        holds): params by name, opt_state, step."""
+        holds): params by name, opt_state, step. Over a mesh the leaves
+        are ``Sharded``."""
+        if isinstance(self.model, ShardedLM):
+            return {"params": dict(self.params), "opt_state": self.opt_state,
+                    "step": self.step}
         return {"params": {n: p.detach() for n, p in self.params.items()},
                 "opt_state": self.opt_state, "step": self.step}
 
     @torch.no_grad()
     def load_tree(self, tree: dict) -> None:
-        """Take the values of a tree shaped as :meth:`tree`'s."""
-        self.model.load_state_dict(tree["params"])
+        """Take the values of a tree shaped as :meth:`tree`'s (over a mesh,
+        ``Sharded`` leaves, on the mesh they were restored onto)."""
+        if isinstance(self.model, ShardedLM):
+            rules = self.model.rules
+            mesh = next(iter(tree["params"].values())).mesh
+            if mesh is not self.model.mesh:
+                rules = shd.make_rules(self.model.cfg, mesh,
+                                       fsdp=rules["embed"] is not None)
+            self.model = ShardedLM(self.model.cfg, tree["params"], rules)
+        else:
+            self.model.load_state_dict(tree["params"])
         self.opt_state = tree["opt_state"]
         self.step = tree["step"]
 
 
-def _no_mesh(mesh, rules=None):
-    if mesh is not None or rules:
-        raise NotImplementedError(
-            "meshes and sharding rules are not ported yet: the port's "
-            "training step runs on one device")
+def opt_specs(model, cfg, mesh) -> dict:
+    """The masters' and moments' spec by name: FSDP over the mesh,
+    whatever the compute parameters' rules (the reference's ZeRO-1 keeps
+    them split)."""
+    return shd.param_spec_tree(model, cfg, shd.make_rules(cfg, mesh))
 
 
 def init_train_state(generator: torch.Generator, cfg, device=None,
-                     mesh=None) -> TrainState:
+                     mesh=None, rules=None) -> TrainState:
     """A fresh model from ``generator`` (see ``init_params``) on
-    ``device`` (the card by default), its AdamW state and step 0."""
-    _no_mesh(mesh)
-    model = init_params(cfg, generator, resolve_device(device))
-    return TrainState(model=model, opt_state=adamw_init(reference_params(model)),
-                      step=torch.zeros((), dtype=torch.int32,
-                                       device=model.device))
+    ``device`` (the card by default), its AdamW state and step 0.
+
+    With ``mesh``: the model is drawn on ``device`` (default: the first
+    entry's) and placed as :func:`shard_train_state` places a state, the
+    masters cut from the parameters and the moments made as zero blocks
+    (no whole fp32 copy exists at once)."""
+    if mesh is None and rules:
+        raise ValueError("rules= needs mesh=")
+    dev = resolve_device(device) if mesh is None or device is not None \
+        else mesh.devices[0]
+    model = init_params(cfg, generator, dev)
+    if mesh is None:
+        return TrainState(model=model,
+                          opt_state=adamw_init(reference_params(model)),
+                          step=torch.zeros((), dtype=torch.int32,
+                                           device=dev))
+    ospecs = opt_specs(model, cfg, mesh)
+    with torch.no_grad():
+        master = {n: shd.Sharded.place(p.float(), mesh, ospecs[n])
+                  for n, p in reference_params(model).items()}
+    zeros = lambda: {n: m.like(fill=0.0)             # noqa: E731
+                     for n, m in master.items()}
+    first = mesh.devices[0]
+    opt = {"master": master, "mu": zeros(), "nu": zeros(),
+           "step": torch.zeros((), dtype=torch.int32, device=first)}
+    rules = rules if rules is not None else shd.make_rules(cfg, mesh)
+    return TrainState(model=ShardedLM.place(model, mesh, rules),
+                      opt_state=opt,
+                      step=torch.zeros((), dtype=torch.int32, device=first))
 
 
-def train_state_from_reference(tree, cfg, device=None) -> TrainState:
+@torch.no_grad()
+def shard_train_state(state: TrainState, mesh, rules=None) -> TrainState:
+    """An unsharded state placed on ``mesh``: the model as a
+    ``ShardedLM`` by ``rules`` (default ``make_rules(cfg, mesh)``),
+    masters and moments ``Sharded`` by the FSDP spec tree, the two steps
+    on the first entry. The unsharded state is left as it was."""
+    cfg = state.model.cfg
+    rules = rules if rules is not None else shd.make_rules(cfg, mesh)
+    ospecs = opt_specs(state.model, cfg, mesh)
+    dev = mesh.devices[0]
+    opt = {k: {n: shd.Sharded.place(t, mesh, ospecs[n])
+               for n, t in state.opt_state[k].items()}
+           for k in ("master", "mu", "nu")}
+    opt["step"] = state.opt_state["step"].to(dev, copy=True)
+    return TrainState(model=ShardedLM.place(state.model, mesh, rules),
+                      opt_state=opt, step=state.step.to(dev, copy=True))
+
+
+def state_sharding(state: TrainState, mesh, rules=None) -> dict:
+    """The (mesh, spec) of every leaf of ``state.tree()`` on ``mesh`` (None
+    for the steps, which restore onto their own device): the
+    ``sharding_tree`` of an elastic restore. ``rules`` default to
+    ``make_rules`` on ``mesh`` with the state's own FSDP choice."""
+    cfg = state.model.cfg
+    if rules is None:
+        fsdp = not isinstance(state.model, ShardedLM) \
+            or state.model.rules["embed"] is not None
+        rules = shd.make_rules(cfg, mesh, fsdp=fsdp)
+    pspecs = shd.param_spec_tree(state.model, cfg, rules)
+    ospecs = opt_specs(state.model, cfg, mesh)
+    tree = state.tree()
+    return {"params": {n: (mesh, pspecs[n]) for n in tree["params"]},
+            "opt_state": {**{k: {n: (mesh, ospecs[n])
+                                 for n in tree["opt_state"][k]}
+                             for k in ("master", "mu", "nu")},
+                          "step": None},
+            "step": None}
+
+
+def batch_sharding(mesh, model_cfg) -> dict:
+    """The placements (mesh, spec) of a global batch's ``inputs`` and
+    ``targets``: the batch axis over the DP axes."""
+    rules = shd.make_rules(model_cfg, mesh)
+    tok = shd.logical(("batch", None), rules)
+    emb = shd.logical(("batch", None, None), rules)
+    return {"inputs": (mesh, emb if model_cfg.embedding_inputs else tok),
+            "targets": (mesh, tok)}
+
+
+def place_batch(batch: dict, mesh, model_cfg) -> dict:
+    """A global batch placed on ``mesh`` by :func:`batch_sharding`."""
+    return {k: shd.Sharded.place(batch[k], *sh)
+            for k, sh in batch_sharding(mesh, model_cfg).items()}
+
+
+def train_state_from_reference(tree, cfg, device=None,
+                               mesh=None) -> TrainState:
     """The JAX package's ``TrainState`` as the port's: ``tree`` is one with
     numpy leaves (``params``, ``opt_state.{master,mu,nu,step}``, ``step``),
     or the nested dict its checkpoint manifest holds (keys "0", "1" and
     "2" for those three). The (G, ...) stacked leaves of params and of the
-    masters and moments are sliced per layer by ``reference_key``."""
+    masters and moments are sliced per layer by ``reference_key``. With
+    ``mesh``, the state is then placed by :func:`shard_train_state` (a
+    checkpoint the reference wrote, restored sharded)."""
     if isinstance(tree, dict):
         params, opt, step = tree["0"], tree["1"], tree["2"]
     else:
@@ -105,7 +207,7 @@ def train_state_from_reference(tree, cfg, device=None) -> TrainState:
                 _put(dst, reference_leaf(opt[key], cfg, name))
         _put(state.opt_state["step"], opt["step"])
         _put(state.step, step)
-    return state
+    return state if mesh is None else shard_train_state(state, mesh)
 
 
 def make_train_step(model_cfg, train_cfg: TrainConfig, mesh=None,
@@ -118,8 +220,16 @@ def make_train_step(model_cfg, train_cfg: TrainConfig, mesh=None,
     microbatch the grads stay in the parameters' dtypes; with more, they
     are summed in fp32 and divided by the count, and so are the loss and
     the aux loss.
+
+    With ``mesh`` or ``rules``: the state is a mesh state
+    (:func:`init_train_state` with ``mesh=``) and the batch global
+    tensors or placed by :func:`place_batch`; see :func:`_mesh_step`.
     """
-    _no_mesh(mesh, rules)
+    if mesh is not None or rules:
+        mesh = mesh if mesh is not None else rules["_mesh"]
+        rules = rules if rules is not None else shd.make_rules(model_cfg,
+                                                               mesh)
+        return _mesh_step(model_cfg, train_cfg, mesh, rules)
     nm = train_cfg.n_microbatches
 
     def grad_accum(model, batch):
@@ -158,3 +268,107 @@ def make_train_step(model_cfg, train_cfg: TrainConfig, mesh=None,
         return state, {"loss": loss, "aux": aux, **stats}
 
     return train_step
+
+
+def _mesh_step(model_cfg, train_cfg: TrainConfig, mesh, rules):
+    """The DP/FSDP step: microbatch i is the reference's (rows [i·B/nm,
+    (i+1)·B/nm) of the global batch), split over the DP rows; each row's
+    gradient goes into fp32 buffers cut like the masters; after the
+    microbatches (divided by their count when more than one), AdamW on
+    the blocks, the global norm summed leaf by leaf in the reference's
+    order over the distinct blocks. ``step.dry_row(state, batch)`` runs
+    what one device does: the first row, and the optimizer on that row's
+    first entry (the dry run's per-device walk)."""
+    nm = train_cfg.n_microbatches
+
+    def run(state: TrainState, batch: dict, dry: bool = False):
+        model = state.model
+        if not isinstance(model, ShardedLM) or model.mesh is not mesh:
+            raise ValueError("the state is not placed on this step's mesh")
+        if model.rules != rules:
+            raise ValueError("the state's rules are not this step's")
+        ospecs = {n: m.spec for n, m in state.opt_state["master"].items()}
+        B = batch["targets"].shape[0]
+        mb = B // nm
+        first = mesh.rows(shd._names(rules["batch"]), mb)[0]
+        grads = grad_buffers(model, ospecs, (first.home,) if dry else None)
+        r = {**rules, "_rows": (first,)} if dry else rules
+        g = _Grad(grads, (first.home,) if dry else None)
+        lsum = asum = None
+        for i in range(nm):
+            loss, metrics = _mesh_loss(model, batch, r, g, i * mb, mb)
+            loss.backward()
+            loss, aux = loss.detach(), metrics["aux"].detach()
+            lsum = loss if lsum is None else lsum + loss
+            asum = aux if asum is None else asum + aux
+        if nm > 1:
+            with torch.no_grad():
+                for buf in grads.values():
+                    for e in _entries(buf, first, dry):
+                        buf.blocks[e].div_(nm)
+            lsum, asum = lsum / nm, asum / nm
+        stats = _mesh_adamw(grads, state, train_cfg.opt, first, dry)
+        state.step = state.step + 1
+        return state, {"loss": lsum, "aux": asum, **stats}
+
+    def step(state, batch):
+        return run(state, batch)
+
+    step.dry_row = lambda state, batch: run(state, batch, dry=True)
+    return step
+
+
+def _entries(sh, first, dry):
+    return (first.home,) if dry else range(sh.mesh.size)
+
+
+@torch.no_grad()
+def _mesh_adamw(grads: dict, state: TrainState, cfg: AdamWConfig, first,
+                dry: bool):
+    """``adamw_update`` on the blocks: the schedule, norm and clip scale
+    on the first row's entry, then each block's update on its device
+    with those 0-d values moved to it. Compute parameters are the
+    masters' blocks cast (or, when their spec differs, ZeRO-1, gathered
+    from them)."""
+    opt, mesh, home = state.opt_state, state.model.mesh, first.home
+    step = opt["step"] + 1
+    lr = warmup_cosine(cfg, step)
+    total = None
+    for g in grads.values():     # the reference's leaf order
+        s = None
+        for e in ((home,) if dry else g.distinct()):
+            b = g.blocks[e].reshape(-1)
+            d = mesh.move(torch.dot(b, b), e, home, "all-reduce")
+            s = d if s is None else s + d
+        total = s if total is None else total + s
+    gnorm = torch.sqrt(total)
+    f32 = dict(dtype=torch.float32, device=gnorm.device)
+    scale = torch.clamp(torch.div(torch.tensor(cfg.grad_clip, **f32),
+                                  torch.clamp(gnorm, min=1e-9)), max=1.0)
+    stepf = step.to(torch.float32)
+    b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, **f32), stepf)
+    b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, **f32), stepf)
+    consts = {}
+
+    def at(e):
+        if e not in consts:
+            consts[e] = [mesh.move(t, home, e, "all-reduce")
+                         for t in (scale, b1c, b2c, lr)]
+        return consts[e]
+
+    params, decay = state.params, state.decay
+    for name, g in grads.items():
+        master = opt["master"][name]
+        p = params[name]
+        same = p.spec == master.spec
+        for e in _entries(master, first, dry):
+            sc, c1, c2, lr_e = at(e)
+            _adamw_leaf(g.blocks[e], opt["mu"][name].blocks[e],
+                        opt["nu"][name].blocks[e], master.blocks[e],
+                        p.blocks[e] if same else None, cfg=cfg, scale=sc,
+                        b1c=c1, b2c=c2, lr=lr_e, wd=decay[name])
+        if not same:
+            for e in _entries(p, first, dry):
+                p.blocks[e].copy_(master.read(e, p.boxes[e], prefer=(e,)))
+    opt["step"] = step
+    return {"lr": lr, "grad_norm": gnorm}

@@ -46,7 +46,11 @@ def test_port_modules_import_without_jax():
             "repro_torch.train", "repro_torch.train.optimizer",
             "repro_torch.train.train_lib", "repro_torch.train.compression",
             "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
-            "repro_torch.data.lm_data", "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.data.lm_data", "repro_torch.launch.train",
+            "repro_torch.models.sharding", "repro_torch.launch.mesh",
+            "repro_torch.launch.dryrun", "repro_torch.launch.report",
+            "repro_torch.launch.roofline",
+            "repro_torch.launch.hlo_walk"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules\n"
@@ -171,3 +175,49 @@ def test_training_entry_points_default_to_the_card():
             call()
     assert init_train_state(torch.Generator(), cfg,
                             "cpu").model.device.type == "cpu"
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+            yield from (f"{node.module}.{a.name}" for a in node.names)
+
+
+def test_port_imports_no_torch_distributed():
+    """The meshes are one process over a list of devices: no process
+    group, so no ``torch.distributed`` (DeviceMesh, DTensor, FSDP) in the
+    port, its tools or the smoke."""
+    paths = sorted(PORT.rglob("*.py")) + sorted(
+        (ROOT / "tools").glob("*.py")) + [ROOT / "chip_smoke.py"]
+    bad = {str(p.relative_to(ROOT)): m for p in paths
+           for m in _imported_modules(p)
+           if m == "torch.distributed" or m.startswith("torch.distributed.")}
+    assert not bad, bad
+
+
+def test_mesh_entry_points_default_to_the_card():
+    """A Mesh built without devices and init_train_state(mesh=) on it run
+    on the card, and raise without one; the production mesh's ``meta``
+    entries are the one documented exception (the dry run allocates
+    nothing)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.sharding import Mesh
+    from repro_torch.train import init_train_state
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Mesh((2, 2), ("data", "model"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Mesh((2, 2), ("data", "model"), ["cuda:0"] * 4)
+    cfg = get_smoke_config("yi-9b")
+    cpu = Mesh((2, 2), ("data", "model"), ["cpu"] * 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_train_state(torch.Generator(), cfg, "cuda", mesh=cpu)
+    state = init_train_state(torch.Generator(), cfg, mesh=cpu)
+    assert state.model.mesh is cpu and state.step.device.type == "cpu"
+    assert {d.type for d in make_production_mesh().devices} == {"meta"}

@@ -374,9 +374,15 @@ def test_loss_decreases_over_steps():
 
 
 def test_make_train_step_refuses_a_mesh():
+    """A mesh step refuses a state that is not placed on its mesh (the
+    mesh step itself is ``tests/test_torch_mesh_train.py``'s)."""
+    from repro_torch.models.sharding import Mesh
     cfg = configs.get_smoke_config("yi-9b")
-    with pytest.raises(NotImplementedError, match="meshes"):
-        make_train_step(cfg, TrainConfig(), mesh=object())
+    mesh = Mesh((2, 2), ("data", "model"), ["cpu"] * 4)
+    step = make_train_step(cfg, TrainConfig(), mesh=mesh)
+    state = init_train_state(torch.Generator().manual_seed(0), cfg, CPU)
+    with pytest.raises(ValueError, match="not placed on this step's mesh"):
+        step(state, _tb(_batch(cfg, S)))
 
 
 def assert_masters_close(port, ref_master, cfg, lr):
