@@ -201,21 +201,29 @@ Phases, any failure exits non-zero:
               cache's sequence sharded over "model" (prefill, then 31
               sequence-parallel decode steps); the cache after the
               sharded prefill, gathered, equals the unsharded prefill's
-              bit for bit, and the greedy tokens are logged beside [lm]'s.
+              bit for bit, and the greedy tokens are logged beside [lm]'s;
+              the first decode step is fed the unsharded prefill's token
+              (teacher forcing), and its logits are held against the
+              unsharded decode step's within MESH_BF16_TOL times the
+              unsharded model's own route difference there (its decode
+              step against a prefill over the same P + 1 tokens).
               yi-9b (2 layers, fp32) on (2, 2): prefill of 4 x 1,100
               tokens and 8 decode steps, logits within 2e-4 of the
               unsharded card's at every step. The saved state restored
               onto (4, 1) and (1, 1), every leaf bit for bit. yi-9b at
               full width, 8 layers, bf16 under fp32 masters on (2, 2),
               batch 8 x 2,048 in 2 microbatches: a warm step and 3 timed
-              steps. Then [dryrun]: ``launch.dryrun.lower_cell`` for
-              yi-9b x {train_4k, decode_32k} on the (16, 16) production
-              mesh of ``meta`` entries, and the counting walker over the
-              timed step's shapes (a subprocess at the lowest priority,
-              started after the build, since its op-by-op walk of a
-              48-layer step takes minutes on the host). The mesh paths
-              launch none of K1-K7. Last, the recompile sentinel's builds
-              by site are logged, and any key built twice fails the run.
+              steps. The mesh paths launch none of K1-K7.
+19. dryrun  — ``launch.dryrun.lower_cell`` for yi-9b x {train_4k,
+              decode_32k} on the (16, 16) production mesh of ``meta``
+              entries, and the counting walker over [mesh]'s timed step's
+              shapes. The op-by-op walk of a 48-layer step takes minutes
+              of host time, so it runs in one subprocess at the lowest
+              CPU priority and one thread, started after the build; it
+              ends minutes before [lm] begins (logged), so [lm], [train]
+              and [mesh] never share the host with it. Last, the
+              recompile sentinel's builds by site are logged, and any key
+              built twice fails the run.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after it: serving (phase 2), each join's ``search_pairs``
@@ -330,6 +338,11 @@ TRAIN_MASTER_TOL = 1e-5  # [train]: updated masters, max abs ...
 TRAIN_MASTER_FLIPS = 1e-4  # ... on all but this share of the elements
 TRAIN_CLI = ["--arch", "yi-9b", "--smoke", "--steps", "6", "--seq", "32"]
 MESH_SERVE = (1, 4)     # [mesh]: (data, model) of the full-size serving
+# [mesh] bf16 class of the sharded decode: its first step's max abs logit
+# difference from the unsharded decode step, fed the same token, within
+# this many times the unsharded model's own difference between two routes
+# to the same logits (its decode step, and a prefill over P + 1 tokens)
+MESH_BF16_TOL = 4.0
 # [mesh] sequence-parallel decode in fp32: arch, layers, batch, prompt,
 # decode steps (1,100 tokens: two attention chunks); the reference test's
 # bar on the logits
@@ -3273,9 +3286,11 @@ def phase_train(torch, ops, dev, smi, log):
 
 
 def _dryrun_start():
-    """The [dryrun] walk in a subprocess at the lowest CPU priority and
-    one host thread: it needs only the host, and walks a 48-layer step op
-    by op on meta tensors. Its last stdout line is a JSON object."""
+    """The [dryrun] walks in a subprocess at the lowest CPU priority and
+    one host thread: the production cells (``lower_cell`` on the (16, 16)
+    mesh of ``meta`` entries), then [mesh]'s timed step's shapes (every
+    row of a (2, 2) meta mesh). Its last stdout line is a JSON object,
+    with the wall-clock time the walks ended."""
     src = Path(__file__).resolve().parent / "src"
     arch, n, B, S, nm, _ = TRAIN_RUN
     code = textwrap.dedent(f"""
@@ -3319,10 +3334,11 @@ def _dryrun_start():
         out["timed_step"] = {{"flops": w.flops, "hbm_bytes": w.hbm_bytes,
                               "collective_bytes": w.collective_bytes,
                               "walk_s": time.perf_counter() - t0}}
+        out["ended"] = time.time()
         print(json.dumps(out))
         """)
     env = {**os.environ, "PYTHONPATH": str(src), "OMP_NUM_THREADS": "1"}
-    # files, not pipes: nothing reads them until [mesh]
+    # files, not pipes: nothing reads them until [dryrun]
     out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
     proc = subprocess.Popen([sys.executable, "-c", code], env=env,
                             stdout=out, stderr=err, text=True)
@@ -3337,6 +3353,29 @@ def _mesh_cache_equal(torch, a, b):
             if not torch.equal(la[k], lb[k].full(la[k].device)):
                 return False
     return True
+
+
+def _mesh_bf16_class(torch, lg_u0, lg_s0, lg_u1, lg_s1, lg_p1):
+    """The sharded bf16 serving's logits against the unsharded model's on
+    the same tokens: the prefill's, and the first decode step's (both
+    fed the unsharded prefill's token), beside the unsharded model's own
+    difference between its decode step and its prefill over the same
+    P + 1 tokens; for each row whose argmax differs, the unsharded and
+    sharded top-2 margins."""
+    d0 = float((lg_s0 - lg_u0).abs().max())
+    d1 = float((lg_s1 - lg_u1).abs().max())
+    route = float((lg_p1 - lg_u1).abs().max())
+    flips = (lg_s1.argmax(-1) != lg_u1.argmax(-1)).nonzero()[:, 0].tolist()
+    route_flips = int((lg_p1.argmax(-1) != lg_u1.argmax(-1)).sum())
+
+    def margin(lg, r):
+        top = torch.topk(lg[r], 2).values
+        return float(top[0] - top[1])
+    return {"prefill_max_abs": d0, "max_abs": d1, "route_max_abs": route,
+            "logit_abs_max": float(lg_u1.abs().max()),
+            "flipped_rows": flips, "route_flipped_rows": route_flips,
+            "margins": [{"row": r, "unsharded": margin(lg_u1, r),
+                         "sharded": margin(lg_s1, r)} for r in flips]}
 
 
 def _mesh_serve(torch, dev, smi, lm, log):
@@ -3357,7 +3396,14 @@ def _mesh_serve(torch, dev, smi, lm, log):
     prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
                            device=dev)
     want = init_cache(cfg, B, P + G, dev)
-    prefill(model, prompt, want)
+    lg_u0, _ = prefill(model, prompt, want)
+    first = torch.argmax(lg_u0, -1)[:, None]
+    # the unsharded model's first decode step (on a copy of the cache) and
+    # the same position's logits by the chunked prefill route
+    lg_u1, _ = decode_step(model, [{k: v.clone() for k, v in c.items()}
+                                   for c in want], first, P)
+    lg_p1, _ = prefill(model, torch.cat([prompt, first], 1),
+                       init_cache(cfg, B, P + 1, dev))
     mesh = Mesh(MESH_SERVE, ("data", "model"), [dev] * 4)
     rules = make_rules(cfg, mesh)
     torch.cuda.synchronize()
@@ -3368,33 +3414,39 @@ def _mesh_serve(torch, dev, smi, lm, log):
     place_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
 
-    def run(toks, steps, check=None):
+    def run(toks, steps, check=None, fed=None):
+        """Prefill and greedy decode; ``fed`` (B, 1), when given, is the
+        first decode step's token in place of the prefill's argmax."""
         cache = init_cache(cfg, B, toks.shape[1] + steps + 1, rules=rules)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, cache = prefill(sharded, toks, cache, rules)
-        tok = torch.argmax(logits, -1)[:, None]
+        tok = torch.argmax(logits, -1)[:, None] if fed is None else fed
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         same = None if check is None else _mesh_cache_equal(torch, check,
                                                             cache)
-        out = [tok]
+        out, seen = [tok], [logits]
         t2 = time.perf_counter()
         for i in range(steps):
             logits, cache = decode_step(sharded, cache, tok,
                                         toks.shape[1] + i, rules)
             tok = torch.argmax(logits, -1)[:, None]
             out.append(tok)
+            if i == 0:
+                seen.append(logits)
         torch.cuda.synchronize()
         return (torch.cat(out, 1).cpu().numpy(), logits, t1 - t0,
-                time.perf_counter() - t2, same)
+                time.perf_counter() - t2, same, seen)
 
     # warm the sharded paths (64 + 3 + 1 slots: the cache's sequence
     # divides over "model", so the decode is sequence-parallel too)
     run(prompt[:, :64], 3)
     torch.cuda.reset_peak_memory_stats(dev)
-    ids, logits, prefill_s, decode_s, same = run(prompt, G - 1, want)
+    ids, logits, prefill_s, decode_s, same, (lg_s0, lg_s1) = run(
+        prompt, G - 1, want, first)
     peak = torch.cuda.max_memory_allocated(dev)
+    bf16 = _mesh_bf16_class(torch, lg_u0, lg_s0, lg_u1, lg_s1, lg_p1)
     if not same:
         raise AssertionError(f"[mesh] {arch}: the cache after the sharded "
                              f"prefill != the unsharded prefill's")
@@ -3404,12 +3456,13 @@ def _mesh_serve(torch, dev, smi, lm, log):
     lm_ids = np.asarray(lm["serve"]["ids"])
     agree = float(np.mean(ids == lm_ids))
     differ = (ids != lm_ids).any(0)
-    first = int(np.argmax(differ)) if differ.any() else G
+    first_diff = int(np.argmax(differ)) if differ.any() else G
     steps = G - 1
     out = {"mesh": MESH_SERVE, "place_s": place_s, "prefill_s": prefill_s,
            "decode_ms_step": 1e3 * decode_s / steps,
            "decode_tok_s": B * steps / decode_s, "peak_gib": peak / 2**30,
-           "ids_agree": agree, "first_diverging_token": first}
+           "ids_agree": agree, "first_diverging_token": first_diff,
+           "bf16": bf16}
     u = lm["serve"]
     log(f"[mesh] {arch} full width and depth in bf16 on a (data, model) = "
         f"{MESH_SERVE} mesh of {dev} x 4 (the KV cache's sequence over "
@@ -3423,12 +3476,28 @@ def _mesh_serve(torch, dev, smi, lm, log):
     log(f"[mesh] {arch} the cache after the sharded prefill, gathered, == "
         f"the unsharded prefill's bit for bit ({cfg.n_layers} layers of k, "
         f"v, pos); greedy ids agree with [lm]'s on {agree:.4f} of "
-        f"{B} x {G} (first token where a row differs: {first}; the "
-        f"sequence-parallel merge rounds bf16 partials otherwise than one "
-        f"chunked flash, and random weights leave the top logits within "
-        f"bf16 rounding of each other; the fp32 check below holds the "
-        f"route)")
-    del sharded, want, logits
+        f"{B} x {G} (first token where a row differs: {first_diff}; "
+        f"greedy tokens are compared for information, the bf16 class "
+        f"and the fp32 check below hold the route)")
+    flips = [(m["row"], round(m["unsharded"], 4), round(m["sharded"], 4))
+             for m in bf16["margins"]]
+    log(f"[mesh] {arch} bf16 class, teacher forced (the first decode step "
+        f"fed the unsharded prefill's token on both sides): sharded - "
+        f"unsharded max abs logit {bf16['prefill_max_abs']:.4g} at the "
+        f"prefill, {bf16['max_abs']:.4g} at the first decode step (logits "
+        f"up to {bf16['logit_abs_max']:.4g}); the unsharded model's decode "
+        f"step - its prefill over the same {P + 1} tokens "
+        f"{bf16['route_max_abs']:.4g} (argmax differs on "
+        f"{bf16['route_flipped_rows']} of {B} rows); bar {MESH_BF16_TOL} x "
+        f"that; rows whose argmax flips and their top-2 margins "
+        f"(unsharded, sharded): {flips}")
+    if not bf16["max_abs"] <= MESH_BF16_TOL * bf16["route_max_abs"]:
+        raise AssertionError(
+            f"[mesh] {arch}: the sharded decode step's logits are "
+            f"{bf16['max_abs']:.4g} from the unsharded one's, past "
+            f"{MESH_BF16_TOL} x the unsharded routes' "
+            f"{bf16['route_max_abs']:.4g}")
+    del sharded, want, logits, lg_u0, lg_u1, lg_p1, lg_s0, lg_s1
     torch.cuda.empty_cache()
     return out
 
@@ -3655,9 +3724,11 @@ def _mesh_train_full(torch, dev, smi, train, log):
     return out
 
 
-def _dryrun_report(proc, run, log):
-    """The [dryrun] subprocess's results, logged; the walker's FLOPs of
-    the timed step's shapes over its measured step time."""
+def phase_dryrun(proc, lm_began, run, smi, log):
+    """The [dryrun] subprocess's results (phase 19), logged with when its
+    walks ended against ``lm_began`` (the wall-clock start of [lm], or
+    None when [lm] ran first); the walker's FLOPs of [mesh]'s timed
+    step's shapes over its measured step time."""
     from repro_torch.launch.roofline import HBM_BW, NVLINK_BW, PEAK_FLOPS
     t0 = time.perf_counter()
     try:
@@ -3693,24 +3764,33 @@ def _dryrun_report(proc, run, log):
             f"one entry: 'model' splits storage only)")
     t = res["timed_step"]
     step_s = float(np.median(run["step_s"]))
+    waited_s = time.perf_counter() - t0
+    before_lm = None if lm_began is None else lm_began - res["ended"]
+    if before_lm is None:
+        when = "ran after the card's phases"
+    elif before_lm >= 0:
+        when = f"ended {before_lm:.1f} s before [lm] began"
+    else:
+        when = f"ran {-before_lm:.1f} s into [lm]"
     log(f"[dryrun] the timed step's shapes ({TRAIN_RUN[0]}, "
         f"{TRAIN_RUN[1]} layers, {TRAIN_RUN[2]} x {TRAIN_RUN[3]}, every "
         f"row of a (2, 2) meta mesh; walked in {t['walk_s']:.1f} s): "
-        f"{t['flops'] / 1e12:.1f} TFLOP of products over its measured "
-        f"median step {step_s:.4f} s on the card = "
-        f"{t['flops'] / step_s / 1e12:.1f} TFLOP/s; "
+        f"{t['flops'] / 1e12:.1f} TFLOP of products over [mesh]'s "
+        f"measured median step {step_s:.4f} s on the card = "
+        f"{t['flops'] / step_s / 1e12:.1f} TFLOP/s ({smi}); "
         f"{t['hbm_bytes'] / 1e12:.2f} TB of op traffic, "
-        f"{t['collective_bytes'] / 1e9:.2f} GB between entries; waited "
-        f"{time.perf_counter() - t0:.1f} s for the walk")
-    return {**res, "timed_step_tflop_s": t["flops"] / step_s / 1e12}
+        f"{t['collective_bytes'] / 1e9:.2f} GB between entries; the walks "
+        f"{when}; waited {waited_s:.1f} s for them")
+    return {**res, "timed_step_tflop_s": t["flops"] / step_s / 1e12,
+            "before_lm_s": before_lm}
 
 
-def phase_mesh(torch, ops, dev, smi, lm, train, dryrun_proc, log):
+def phase_mesh(torch, ops, dev, smi, lm, train, log):
     """The LM stack over a mesh of entries on the one card (phase 18):
     sequence-parallel serving at full size, the fp32 decode and training
-    checks against the unsharded card, the elastic restore, the sharded
-    training step at full width, and the [dryrun] walk's figures. Every
-    check fails the run; the mesh paths reach none of K1-K7."""
+    checks against the unsharded card, the elastic restore and the
+    sharded training step at full width. Every check fails the run; the
+    mesh paths reach none of K1-K7."""
     t_phase = time.perf_counter()
     if (torch.backends.cuda.matmul.allow_tf32
             or torch.get_float32_matmul_precision() != "highest"):
@@ -3735,7 +3815,6 @@ def phase_mesh(torch, ops, dev, smi, lm, train, dryrun_proc, log):
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"[mesh] the mesh paths launch none of K1-K7 (counts "
         f"{json.dumps(launches)}); phase {out['phase_s']:.1f} s")
-    out["dryrun"] = _dryrun_report(dryrun_proc, out["run"], log)
     return out
 
 
@@ -3895,7 +3974,7 @@ def main() -> int:
 
 
 def _run_phases(torch, ops, SENTINEL, log, t_start, dev, smi, dryrun_proc):
-    """Phases 2-18 (see the module docstring), then the closing lines."""
+    """Phases 2-19 (see the module docstring), then the closing lines."""
 
     ops.RECORDED = {}
     (index, serve_data, serve_probe), serve_l = _window(
@@ -4003,12 +4082,15 @@ def _run_phases(torch, ops, SENTINEL, log, t_start, dev, smi, dryrun_proc):
         if row["name"] in MR_REPLAYED:
             row["mr_launches"] = mr_l[row["name"]]
             row.update(mr.get(row["name"], {}))
+    lm_began = time.time()
     lm = phase_lm(torch, ops, dev, smi, log)
     log(f"[main] [lm] {json.dumps(lm)}")
     train = phase_train(torch, ops, dev, smi, log)
     log(f"[main] [train] {json.dumps(train)}")
-    mesh = phase_mesh(torch, ops, dev, smi, lm, train, dryrun_proc, log)
+    mesh = phase_mesh(torch, ops, dev, smi, lm, train, log)
     log(f"[main] [mesh] {json.dumps(mesh)}")
+    dryrun = phase_dryrun(dryrun_proc, lm_began, mesh["run"], smi, log)
+    log(f"[main] [dryrun] {json.dumps(dryrun)}")
     log(f"[sentinel] builds by site: {json.dumps(SENTINEL.by_site())}")
     rebuilt = SENTINEL.recompiled()
     if rebuilt:

@@ -537,10 +537,6 @@ def _row_params(model, row, grad: _Grad | None):
         anchor = torch.zeros((), device=row.device, requires_grad=True)
 
     def get(name):
-        if not isinstance(model, ShardedLM):
-            if grad is not None:
-                raise ValueError("a mesh training step needs a ShardedLM")
-            return model.get_parameter(name).to(row.device)
         sh = model.params[name]
         if grad is None:
             return sh.read(row.home, prefer=row.entries)
@@ -560,10 +556,6 @@ def _take(x, lo: int, n: int, row, kind="all-to-all"):
     return x[lo:lo + n].to(row.device)
 
 
-def _skeleton(model):
-    return model.skeleton if isinstance(model, ShardedLM) else model
-
-
 def _mesh_rows(model, rules, B: int):
     """The DP rows a mesh call computes: ``rules["_rows"]`` when given (a
     dry run's one row), else every row of the mesh for batch B."""
@@ -581,7 +573,7 @@ def _row_hidden(model, row, x_in, positions, cache, rules, get):
     rules_r = {**rules, "_rows": (row,)}
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
     stats = []
-    for i, layer in enumerate(_skeleton(model).layers):
+    for i, layer in enumerate(model.skeleton.layers):
         prefix = f"layers.{i}."
         local = [n for n, _ in layer.named_parameters()]
         c = None if cache is None else cache[i]
@@ -644,6 +636,8 @@ def _mesh_forward(model, inputs, rules, positions, cache, grad=None,
                   offset=0, B=None):
     """Each row's (hidden, MoE stats, getter) for rows [offset, offset +
     B) of ``inputs`` (all of them by default)."""
+    if not isinstance(model, ShardedLM):
+        raise ValueError("a mesh call needs a ShardedLM (ShardedLM.place)")
     B = inputs.shape[0] if B is None else B
     out = []
     for row in _mesh_rows(model, rules, B):
@@ -818,9 +812,9 @@ def loss_fn(model, batch: dict, rules=None):
     """batch: dict(inputs (B, S) int or (B, S, d) float, targets (B, S)
     int). Returns (loss, metrics dict(ce, aux, tokens)): the chunked CE
     plus ``MOE_AUX_WEIGHT`` times the MoE load-balancing loss. Over a
-    mesh, the rows' sums are all-reduced into the same loss (the
-    gradient then flows to the parameters of an ``LM``, not to the
-    blocks of a ``ShardedLM``: that is ``train_step_fn``'s)."""
+    mesh the model is a :class:`ShardedLM` and the rows' sums are
+    all-reduced into the same loss (its gradients into the blocks are
+    ``train_step_fn``'s)."""
     if (rules or {}).get("_mesh") is not None:
         return _mesh_loss(model, batch, rules)
     hidden, _, aux = forward(model, batch["inputs"])

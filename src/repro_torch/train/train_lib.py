@@ -95,16 +95,14 @@ def opt_specs(model, cfg, mesh) -> dict:
 
 
 def init_train_state(generator: torch.Generator, cfg, device=None,
-                     mesh=None, rules=None) -> TrainState:
+                     mesh=None) -> TrainState:
     """A fresh model from ``generator`` (see ``init_params``) on
     ``device`` (the card by default), its AdamW state and step 0.
 
     With ``mesh``: the model is drawn on ``device`` (default: the first
-    entry's) and placed as :func:`shard_train_state` places a state, the
-    masters cut from the parameters and the moments made as zero blocks
-    (no whole fp32 copy exists at once)."""
-    if mesh is None and rules:
-        raise ValueError("rules= needs mesh=")
+    entry's) and placed as :func:`shard_train_state` places a state, by
+    ``make_rules(cfg, mesh)``, the masters cut from the parameters and the
+    moments made as zero blocks (no whole fp32 copy exists at once)."""
     dev = resolve_device(device) if mesh is None or device is not None \
         else mesh.devices[0]
     model = init_params(cfg, generator, dev)
@@ -122,8 +120,8 @@ def init_train_state(generator: torch.Generator, cfg, device=None,
     first = mesh.devices[0]
     opt = {"master": master, "mu": zeros(), "nu": zeros(),
            "step": torch.zeros((), dtype=torch.int32, device=first)}
-    rules = rules if rules is not None else shd.make_rules(cfg, mesh)
-    return TrainState(model=ShardedLM.place(model, mesh, rules),
+    return TrainState(model=ShardedLM.place(model, mesh,
+                                            shd.make_rules(cfg, mesh)),
                       opt_state=opt,
                       step=torch.zeros((), dtype=torch.int32, device=first))
 
@@ -183,15 +181,12 @@ def place_batch(batch: dict, mesh, model_cfg) -> dict:
             for k, sh in batch_sharding(mesh, model_cfg).items()}
 
 
-def train_state_from_reference(tree, cfg, device=None,
-                               mesh=None) -> TrainState:
+def train_state_from_reference(tree, cfg, device=None) -> TrainState:
     """The JAX package's ``TrainState`` as the port's: ``tree`` is one with
     numpy leaves (``params``, ``opt_state.{master,mu,nu,step}``, ``step``),
     or the nested dict its checkpoint manifest holds (keys "0", "1" and
     "2" for those three). The (G, ...) stacked leaves of params and of the
-    masters and moments are sliced per layer by ``reference_key``. With
-    ``mesh``, the state is then placed by :func:`shard_train_state` (a
-    checkpoint the reference wrote, restored sharded)."""
+    masters and moments are sliced per layer by ``reference_key``."""
     if isinstance(tree, dict):
         params, opt, step = tree["0"], tree["1"], tree["2"]
     else:
@@ -207,7 +202,7 @@ def train_state_from_reference(tree, cfg, device=None,
                 _put(dst, reference_leaf(opt[key], cfg, name))
         _put(state.opt_state["step"], opt["step"])
         _put(state.step, step)
-    return state if mesh is None else shard_train_state(state, mesh)
+    return state
 
 
 def make_train_step(model_cfg, train_cfg: TrainConfig, mesh=None,

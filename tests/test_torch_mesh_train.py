@@ -230,7 +230,8 @@ def test_reference_checkpoint_restores_sharded_bitwise(tmp_path):
     tree, step = CheckpointManager(tmp_path).restore()
     assert step == 1
     mesh = _mesh((2, 2))
-    state = train_state_from_reference(tree, tcfg, CPU, mesh=mesh)
+    state = shard_train_state(train_state_from_reference(tree, tcfg, CPU),
+                              mesh)
     assert isinstance(state.model, ShardedLM) and state.model.mesh is mesh
     for n, p in state.params.items():
         np.testing.assert_array_equal(p.full("cpu").numpy(),

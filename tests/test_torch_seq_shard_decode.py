@@ -252,21 +252,37 @@ def test_sharded_prefill_and_decode_match_unsharded_and_reference(case,
 
 def test_sharded_decode_matches_reference_sharded_decode(case):
     """After an unsharded prefill, the port's decode_step over the cache
-    placed by cache_spec_tree (unsharded params, as in the reference's
-    run) against the reference's jitted sharded decode_step."""
+    placed by cache_spec_tree against the reference's jitted sharded
+    decode_step (whose params are unsharded: the ShardedLM's blocks
+    gather to the same values)."""
     cfg, params, d, want = case
     model = params_from_reference(params, cfg, CPU)
     mesh = _mesh()
     rules = shd.make_rules(cfg, mesh)
+    sharded = ShardedLM.place(model, mesh)
     t = torch.from_numpy(d["toks"])
     cache = init_cache(cfg, B, MAXLEN, CPU)
     prefill(model, t[:, :P], cache)
     cache = shd.shard_cache(cache, cfg, rules)
     assert cache[0]["k"].spec == ("data", "model", None, None)
     for s in range(P, P + STEPS):
-        lg, cache = decode_step(model, cache, t[:, s:s + 1], s, rules)
+        lg, cache = decode_step(sharded, cache, t[:, s:s + 1], s, rules)
         np.testing.assert_allclose(lg.numpy(), want[f"sdec/{s}"], rtol=0,
                                    atol=2e-4)
+
+
+def test_mesh_call_refuses_a_plain_lm(case):
+    """With mesh rules, the model must be a ShardedLM: a plain LM is
+    refused by prefill and decode_step alike."""
+    cfg, params, d, _ = case
+    model = params_from_reference(params, cfg, CPU)
+    rules = shd.make_rules(cfg, _mesh())
+    t = torch.from_numpy(d["toks"])
+    cache = init_cache(cfg, B, MAXLEN, CPU, rules=rules)
+    with pytest.raises(ValueError, match="ShardedLM"):
+        prefill(model, t[:, :P], cache, rules)
+    with pytest.raises(ValueError, match="ShardedLM"):
+        decode_step(model, cache, t[:, P:P + 1], P, rules)
 
 
 def test_windowed_ring_cache_stays_whole_on_seq():

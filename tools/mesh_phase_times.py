@@ -1,15 +1,19 @@
-"""The ``[mesh]`` phase alone on the card, with what it compares against.
+"""The ``[mesh]`` and ``[dryrun]`` phases alone on the card, with what
+they compare against.
 
-Starts the ``[dryrun]`` walk, serves yi-9b unsharded as ``[lm]`` does
-(its weights, prompt and greedy ids), trains yi-9b at full width as
-``[train]`` does (its step times), then runs ``chip_smoke.phase_mesh``
-and prints its lines and one JSON line: the phase's seconds and its
-serving, decode-check, training-check, restore and training numbers.
+Serves yi-9b unsharded as ``[lm]`` does (its weights, prompt and greedy
+ids), trains yi-9b at full width as ``[train]`` does (its step times),
+then runs ``chip_smoke.phase_mesh`` and, unless ``--no-dryrun``, the
+``[dryrun]`` walks after it (``chip_smoke.phase_dryrun``), and prints
+their lines and one JSON line: the phase's seconds and its serving (with
+the bf16 class), decode-check, training-check, restore and training
+numbers, and the dry run's.
 
-    python tools/mesh_phase_times.py
+    python tools/mesh_phase_times.py [--no-dryrun]
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -22,6 +26,10 @@ import chip_smoke as smoke  # noqa: E402
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--no-dryrun", action="store_true",
+                    help="skip the [dryrun] walks (minutes of host time)")
+    args = ap.parse_args()
     import torch
 
     from repro_torch.kernels import ops
@@ -34,17 +42,15 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
-    proc = smoke._dryrun_start()
-    try:
-        lm = {"serve": smoke._lm_serve(torch, dev, smi, log)}
-        train = {"run": smoke._train_full_width(torch, dev, smi, log)}
-        out = smoke.phase_mesh(torch, ops, dev, smi, lm, train, proc, log)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+    lm = {"serve": smoke._lm_serve(torch, dev, smi, log)}
+    train = {"run": smoke._train_full_width(torch, dev, smi, log)}
+    out = smoke.phase_mesh(torch, ops, dev, smi, lm, train, log)
+    if not args.no_dryrun:      # the walks after the card's phases here
+        out["dryrun"] = smoke.phase_dryrun(smoke._dryrun_start(), None,
+                                           out["run"], smi, log)
     print(json.dumps({"device": smi, **{k: out[k] for k in (
-        "phase_s", "serve", "decode", "checks", "restore", "run")}}))
+        "phase_s", "serve", "decode", "checks", "restore", "run",
+        "dryrun") if k in out}}))
     return 0
 
 
