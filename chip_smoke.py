@@ -189,19 +189,27 @@ Phases, any failure exits non-zero:
               side; yi-9b trains last, with the card and the host to
               itself. The path launches none of K1-K7.
 18. mesh    — the LM stack over a mesh of entries on the one card
-              (``repro_torch.models.sharding``). The sharded training
-              step (FSDP blocks, a layer gathered at a time, fp32 gradient
-              buffers, AdamW on the blocks) for yi-9b and olmoe-1b-7b at
+              (``repro_torch.models.sharding``), tensor-parallel over
+              "model": each entry of a DP row computes its heads, MLP
+              columns, experts and vocab columns of every layer and the
+              row all-reduces the partials. The sharded training
+              step (FSDP: each entry gathers its box of a layer at a
+              time; fp32 gradient buffers, AdamW on the blocks) for
+              yi-9b and olmoe-1b-7b at
               full width (2 layers, fp32, 4 x 16 tokens, 2 microbatches)
               on a ("data", "model") = (2, 2) mesh of ``cuda:0`` against
               the unsharded card step with [train]'s bars; yi-9b's
               stepped (2, 2) state saved (its files written while the card
               serves). yi-9b at full width and depth in bf16 on a (1, 4)
               mesh, [lm]'s weights and prompt (seed 0), served with the KV
-              cache's sequence sharded over "model" (prefill, then 31
-              sequence-parallel decode steps); the cache after the
-              sharded prefill, gathered, equals the unsharded prefill's
-              bit for bit, and the greedy tokens are logged beside [lm]'s;
+              cache's sequence sharded over "model" (prefill, then
+              MESH_GEN - 1 = 15 sequence-parallel decode steps); the
+              cache after the sharded prefill, gathered, keeps the
+              unsharded prefill's positions, and its k and v are within
+              MESH_BF16_TOL times the unsharded model's own k/v route
+              difference (its decode step's slot P against a prefill
+              over P + 1 tokens); the greedy tokens are logged beside
+              [lm]'s;
               the first decode step is fed the unsharded prefill's token
               (teacher forcing), and its logits are held against the
               unsharded decode step's within MESH_BF16_TOL times the
@@ -216,7 +224,8 @@ Phases, any failure exits non-zero:
               steps. The mesh paths launch none of K1-K7.
 19. dryrun  — ``launch.dryrun.lower_cell`` for yi-9b x {train_4k,
               decode_32k} on the (16, 16) production mesh of ``meta``
-              entries, and the counting walker over [mesh]'s timed step's
+              entries (one entry's share: the per-device figures), and
+              the counting walker over [mesh]'s timed step's
               shapes. The op-by-op walk of a 48-layer step takes minutes
               of host time, so it runs in one subprocess at the lowest
               CPU priority and one thread, started after the build; it
@@ -338,10 +347,16 @@ TRAIN_MASTER_TOL = 1e-5  # [train]: updated masters, max abs ...
 TRAIN_MASTER_FLIPS = 1e-4  # ... on all but this share of the elements
 TRAIN_CLI = ["--arch", "yi-9b", "--smoke", "--steps", "6", "--seq", "32"]
 MESH_SERVE = (1, 4)     # [mesh]: (data, model) of the full-size serving
-# [mesh] bf16 class of the sharded decode: its first step's max abs logit
-# difference from the unsharded decode step, fed the same token, within
-# this many times the unsharded model's own difference between two routes
-# to the same logits (its decode step, and a prefill over P + 1 tokens)
+# [mesh]: tokens the full-size mesh serving makes (the first of [lm]'s 32:
+# each decode step launches every split sublayer once an entry, and the
+# smoke's other phases leave it little of its time limit)
+MESH_GEN = 16
+# [mesh] bf16 class of the sharded serving: its first decode step's max
+# abs logit difference from the unsharded decode step, fed the same token,
+# and its prefill's k and v difference from the unsharded prefill's, each
+# within this many times the unsharded model's own difference between two
+# routes to the same values (its decode step, and a prefill over P + 1
+# tokens: the logits, and the k and v at slot P)
 MESH_BF16_TOL = 4.0
 # [mesh] sequence-parallel decode in fp32: arch, layers, batch, prompt,
 # decode steps (1,100 tokens: two attention chunks); the reference test's
@@ -3346,13 +3361,25 @@ def _dryrun_start():
     return proc
 
 
-def _mesh_cache_equal(torch, a, b):
-    """Every leaf of an unsharded cache equals the sharded one's, whole."""
+def _mesh_cache_diff(torch, a, b):
+    """The max abs difference between an unsharded cache's k and v and
+    the sharded one's, gathered whole (None where a layer's positions
+    differ)."""
+    worst = 0.0
     for la, lb in zip(a, b):
-        for k in (la if isinstance(la, dict) else range(len(la))):
-            if not torch.equal(la[k], lb[k].full(la[k].device)):
-                return False
-    return True
+        if not torch.equal(la["pos"], lb["pos"].full(la["pos"].device)):
+            return None
+        for k in ("k", "v"):
+            d = (la[k].float() - lb[k].full(la[k].device).float()).abs()
+            worst = max(worst, float(d.max()))
+    return worst
+
+
+def _mesh_kv_route(a, b, slot):
+    """The max abs difference between two unsharded caches' k and v at
+    one slot: the bf16 class of a cache entry, from two routes to it."""
+    return max(float((la[k][:, slot].float() - lb[k][:, slot].float())
+                     .abs().max()) for la, lb in zip(a, b) for k in ("k", "v"))
 
 
 def _mesh_bf16_class(torch, lg_u0, lg_s0, lg_u1, lg_s1, lg_p1):
@@ -3381,14 +3408,15 @@ def _mesh_bf16_class(torch, lg_u0, lg_s0, lg_u1, lg_s1, lg_p1):
 def _mesh_serve(torch, dev, smi, lm, log):
     """yi-9b at full width and depth in bf16, [lm]'s weights and prompt,
     on a (1, 4) mesh of ``dev``: the unsharded prefill's cache kept, the
-    model placed as blocks, then the sharded prefill (its cache gathered
-    == the unsharded one, bit for bit) and greedy decode."""
+    model placed as blocks, then the tensor-parallel sharded prefill (its
+    cache gathered beside the unsharded one) and greedy decode."""
     from repro_torch.configs import get_config
     from repro_torch.models import (decode_step, init_cache, init_params,
                                     prefill)
     from repro_torch.models.model import ShardedLM
     from repro_torch.models.sharding import Mesh, make_rules
-    arch, B, P, G = LM_SERVE
+    arch, B, P, _ = LM_SERVE
+    G = MESH_GEN
     cfg = get_config(arch)
     gen = torch.Generator(device=dev).manual_seed(0)
     model = init_params(cfg, gen, dev)          # [lm]'s draws, in order
@@ -3399,11 +3427,13 @@ def _mesh_serve(torch, dev, smi, lm, log):
     lg_u0, _ = prefill(model, prompt, want)
     first = torch.argmax(lg_u0, -1)[:, None]
     # the unsharded model's first decode step (on a copy of the cache) and
-    # the same position's logits by the chunked prefill route
-    lg_u1, _ = decode_step(model, [{k: v.clone() for k, v in c.items()}
-                                   for c in want], first, P)
-    lg_p1, _ = prefill(model, torch.cat([prompt, first], 1),
-                       init_cache(cfg, B, P + 1, dev))
+    # the same position's logits and k/v by the chunked prefill route
+    lg_u1, c_u1 = decode_step(model, [{k: v.clone() for k, v in c.items()}
+                                      for c in want], first, P)
+    lg_p1, c_p1 = prefill(model, torch.cat([prompt, first], 1),
+                          init_cache(cfg, B, P + 1, dev))
+    route_kv = _mesh_kv_route(c_u1, c_p1, P)
+    del c_u1, c_p1
     mesh = Mesh(MESH_SERVE, ("data", "model"), [dev] * 4)
     rules = make_rules(cfg, mesh)
     torch.cuda.synchronize()
@@ -3424,8 +3454,8 @@ def _mesh_serve(torch, dev, smi, lm, log):
         tok = torch.argmax(logits, -1)[:, None] if fed is None else fed
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        same = None if check is None else _mesh_cache_equal(torch, check,
-                                                            cache)
+        same = None if check is None else _mesh_cache_diff(torch, check,
+                                                           cache)
         out, seen = [tok], [logits]
         t2 = time.perf_counter()
         for i in range(steps):
@@ -3447,13 +3477,13 @@ def _mesh_serve(torch, dev, smi, lm, log):
         prompt, G - 1, want, first)
     peak = torch.cuda.max_memory_allocated(dev)
     bf16 = _mesh_bf16_class(torch, lg_u0, lg_s0, lg_u1, lg_s1, lg_p1)
-    if not same:
-        raise AssertionError(f"[mesh] {arch}: the cache after the sharded "
-                             f"prefill != the unsharded prefill's")
+    if same is None:
+        raise AssertionError(f"[mesh] {arch}: the cache's positions after "
+                             f"the sharded prefill != the unsharded's")
     if not bool(torch.isfinite(logits).all()) or ids.shape != (B, G):
         raise AssertionError(f"[mesh] {arch}: sharded serving gave "
                              f"non-finite logits or ids {ids.shape}")
-    lm_ids = np.asarray(lm["serve"]["ids"])
+    lm_ids = np.asarray(lm["serve"]["ids"])[:, :G]
     agree = float(np.mean(ids == lm_ids))
     differ = (ids != lm_ids).any(0)
     first_diff = int(np.argmax(differ)) if differ.any() else G
@@ -3462,6 +3492,7 @@ def _mesh_serve(torch, dev, smi, lm, log):
            "decode_ms_step": 1e3 * decode_s / steps,
            "decode_tok_s": B * steps / decode_s, "peak_gib": peak / 2**30,
            "ids_agree": agree, "first_diverging_token": first_diff,
+           "cache_max_abs": same, "cache_route_max_abs": route_kv,
            "bf16": bf16}
     u = lm["serve"]
     log(f"[mesh] {arch} full width and depth in bf16 on a (data, model) = "
@@ -3473,9 +3504,13 @@ def _mesh_serve(torch, dev, smi, lm, log):
         f"step, {out['decode_tok_s']:.1f} tok/s (unsharded "
         f"{u['decode_ms_step']:.2f} ms, {u['decode_tok_s']:.1f}), peak "
         f"{out['peak_gib']:.2f} GiB (unsharded {u['peak_gib']:.2f}); {smi}")
-    log(f"[mesh] {arch} the cache after the sharded prefill, gathered, == "
-        f"the unsharded prefill's bit for bit ({cfg.n_layers} layers of k, "
-        f"v, pos); greedy ids agree with [lm]'s on {agree:.4f} of "
+    log(f"[mesh] {arch} the cache after the sharded prefill, gathered: "
+        f"positions == the unsharded prefill's, k and v within {same:.4g} "
+        f"max abs over {cfg.n_layers} layers x {P} slots (bf16, each "
+        f"entry's heads projected from the all-reduced residual); the "
+        f"unsharded model's k and v at slot {P}, its decode step - its "
+        f"prefill over {P + 1} tokens, {route_kv:.4g}; bar {MESH_BF16_TOL} "
+        f"x that; greedy ids agree with [lm]'s on {agree:.4f} of "
         f"{B} x {G} (first token where a row differs: {first_diff}; "
         f"greedy tokens are compared for information, the bf16 class "
         f"and the fp32 check below hold the route)")
@@ -3491,6 +3526,11 @@ def _mesh_serve(torch, dev, smi, lm, log):
         f"{bf16['route_flipped_rows']} of {B} rows); bar {MESH_BF16_TOL} x "
         f"that; rows whose argmax flips and their top-2 margins "
         f"(unsharded, sharded): {flips}")
+    if not same <= MESH_BF16_TOL * route_kv:
+        raise AssertionError(
+            f"[mesh] {arch}: the sharded prefill's k and v are {same:.4g} "
+            f"from the unsharded one's, past {MESH_BF16_TOL} x the "
+            f"unsharded routes' {route_kv:.4g}")
     if not bf16["max_abs"] <= MESH_BF16_TOL * bf16["route_max_abs"]:
         raise AssertionError(
             f"[mesh] {arch}: the sharded decode step's logits are "
@@ -3595,9 +3635,10 @@ def _mesh_train_checks(torch, dev, log):
             raise AssertionError(f"[mesh] {arch}: sharded step != "
                                  f"unsharded: {row}")
         log(f"[mesh] {arch} full width ({n} layers) fp32, one step of {B} x "
-            f"{S} in {nm} microbatches on a (2, 2) mesh of {dev} (FSDP "
-            f"blocks, a layer gathered at a time, fp32 gradient buffers, "
-            f"AdamW on the blocks) == the unsharded card step: loss diff "
+            f"{S} in {nm} microbatches on a (2, 2) mesh of {dev} (each "
+            f"entry's box of a layer gathered at a time, tensor-parallel "
+            f"over 'model', fp32 gradient buffers, AdamW on the blocks) "
+            f"== the unsharded card step: loss diff "
             f"{loss_err:.2e} <= {TRAIN_LOSS_TOL}, max grad leaf diff "
             f"{grad_err:.2e} x its max abs <= {TRAIN_GRAD_TOL}, masters "
             f"{far} of {total} past {TRAIN_MASTER_TOL}, max {worst:.2e} <= "
@@ -3711,7 +3752,8 @@ def _mesh_train_full(torch, dev, smi, train, log):
     u = train["run"]
     log(f"[mesh] {arch} full width ({n} of {get_config(arch).n_layers} "
         f"layers), bf16 under fp32 masters, remat, on a (2, 2) mesh of "
-        f"{dev} (FSDP blocks; each DP row {B // 2} x {S} in {nm} "
+        f"{dev} (FSDP blocks, tensor-parallel over 'model'; each DP row "
+        f"{B // 2} x {S} in {nm} "
         f"microbatches): state placed in {init_s:.2f} s, warm step "
         f"{rows[0]['step_s']:.3f} s, then step s "
         f"{[round(t, 4) for t in step_s]} "
@@ -3749,7 +3791,8 @@ def phase_dryrun(proc, lm_began, run, smi, log):
         mem = r["mem"]
         colls = {k: v for k, v in r["collectives"].items() if v}
         log(f"[dryrun] {TRAIN_RUN[0]} x {shape} x single ((16, 16) meta "
-            f"entries, one DP row of {r['row_entries']} walked, "
+            f"entries, the first entry of a DP row of {r['row_entries']} "
+            f"walked, "
             f"{r['walk_s']:.1f} s): per device argument "
             f"{mem['argument'] / 2**30:.2f} GiB, temp "
             f"{mem['temp'] / 2**30:.2f} GiB; flops {r['hlo_flops']:.4e}, "
@@ -3760,8 +3803,10 @@ def phase_dryrun(proc, lm_began, run, smi, log):
             f"{1e3 * r['compute_s']:.2f} ms, memory "
             f"{1e3 * r['memory_s']:.2f} ms, collective "
             f"{1e3 * r['collective_s']:.2f} ms -> {r['bottleneck']}-bound, "
-            f"useful_ratio {r['useful_ratio']:.4f} (the row's compute on "
-            f"one entry: 'model' splits storage only)")
+            f"useful_ratio {r['useful_ratio']:.4f} (one entry's share: "
+            f"its tensor-parallel slice of the row; the walk of the whole "
+            f"row on one entry, before tensor parallelism: train_4k "
+            f"5.0179e15 FLOP, decode_32k 3.4323e11)")
     t = res["timed_step"]
     step_s = float(np.median(run["step_s"]))
     waited_s = time.perf_counter() - t0

@@ -3,23 +3,31 @@ entries — the port of ``repro/launch/dryrun.py``.
 
 For each runnable cell (31 of the 40 — see configs.shape_applicable), the
 state is placed on the production mesh's ``meta`` entries by the spec
-trees (nothing is allocated), and one DP row's step runs under the
-counting walker (``launch/hlo_walk.py``):
+trees (nothing is allocated), and one mesh entry's share of the step —
+the first entry of the first DP row — runs under the counting walker
+(``launch/hlo_walk.py``):
 
-  * train_4k    -> the mesh training step's ``dry_row``: the first row's
-                   microbatches and AdamW on that row's first entry
-  * prefill_32k -> the first row's forward and last-position logits
-  * decode_*    -> the first row's ``decode_step`` against a cache placed
-                   by ``cache_spec_tree`` (sequence-parallel attention
-                   over the row's "model" entries)
+  * train_4k    -> the mesh training step's ``dry_row``: that entry's
+                   slice of the first row's microbatches and AdamW on
+                   its blocks
+  * prefill_32k -> its slice of the first row's forward and
+                   last-position logits
+  * decode_*    -> its slice of the first row's ``decode_step`` against
+                   a cache placed by ``cache_spec_tree`` (its part of the
+                   sequence-parallel attention)
 
-Every row has the same shapes, so the figures are per device, as the
-reference's. Per-device memory = the placed blocks' bytes on the busiest
-entry ("argument") plus the walk's peak of live op outputs ("temp"). The
-port computes a row's slice on the row's first entry, so on a "model" > 1
-mesh the compute term is the whole row's (``row_entries`` in the JSON).
-The roofline terms use the H100's data-sheet rates (``roofline.py``);
-results go to experiments/dryrun_torch/<arch>__<shape>__<mesh>.json.
+The entry computes its tensor-parallel slice of every split sublayer
+(heads, MLP hidden, experts, vocab) and the sublayers the rules keep
+whole over "model" (the recurrent mixers, attention whose heads "model"
+does not divide); the moves the row's other entries make to it or take
+from it (the all-reduce of the partials, the gradients' reduce-scatter)
+are counted, not made, inside ``Mesh.walk``. Every entry has the same
+shapes, so the figures are per device, as the reference's. Per-device
+memory = the placed blocks' bytes on the busiest entry of the row
+("argument") plus the walk's peak of live op outputs ("temp");
+``row_entries`` in the JSON is the row's size. The roofline terms use the H100's data-sheet
+rates (``roofline.py``); results go to
+experiments/dryrun_torch/<arch>__<shape>__<mesh>.json.
 
 Stand-ins on ``meta``: the MoE's sort-based dispatch sizes its buffers by
 capacity, not by counts, so it runs unchanged (its routing is made of
@@ -85,7 +93,8 @@ def lower_cell(arch: str, shape_name: str, mesh, mesh_name: str,
                *, zero1: bool = False, causal_skip: bool = False,
                cfg=None):
     """Place one cell on ``mesh`` (its entries ``meta``, or any devices)
-    and walk one DP row's step; returns (memory dict, roofline).
+    and walk one entry's share of the step; returns (memory dict,
+    roofline).
 
     zero1=True: compute params whole over "data" (no per-microbatch FSDP
     regather), optimizer state FSDP-split. causal_skip=True: the
@@ -130,7 +139,7 @@ def lower_cell(arch: str, shape_name: str, mesh, mesh_name: str,
             placed = (model.params, cache, inputs)
             fn = lambda: decode_step(model, cache,  # noqa: E731
                                      inputs["tokens"], S - 1, dry)
-        with torch.no_grad():
+        with torch.no_grad(), mesh.walk((row.home,)):
             w = walk(fn)
     mem = {"argument": argument_bytes(placed, row.entries), "output": 0,
            "temp": int(w.peak_temp_bytes)}
@@ -161,7 +170,7 @@ def run_cell(arch, shape_name, mesh_name, outdir: Path, verbose=True,
               f"temp={mem['temp']/2**30:.2f}G")
         print(f"     flops/dev={roof.hlo_flops:.3e} bytes/dev="
               f"{roof.hlo_bytes:.3e} coll={roof.collective_bytes:.3e} "
-              f"(a row of {roof.row_entries} entries)")
+              f"(one entry of a row of {roof.row_entries} entries)")
         print(f"     terms: compute={roof.compute_s*1e3:.2f}ms "
               f"memory={roof.memory_s*1e3:.2f}ms "
               f"collective={roof.collective_s*1e3:.2f}ms "

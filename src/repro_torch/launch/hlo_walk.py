@@ -15,8 +15,9 @@ nothing, or real ones) and counts every aten op as it is dispatched:
                        eager op really does round-trip HBM: there is no
                        fusion to keep values on chip)
   * collective_bytes — the bytes of every move between two mesh entries
-                       (``Mesh.move``), by its tag, under the reference's
-                       five keys
+                       (``Mesh.move``; under autograd its gradient's move
+                       back too, and a dry run's counted moves), by its
+                       tag, under the reference's five keys
   * peak_temp_bytes  — the most bytes of op outputs alive at once: a new
                        storage is counted when an op returns it and let go
                        when it is freed (arguments the caller holds, and

@@ -66,7 +66,8 @@ def fmt_details(cells, mesh="single"):
                 f"flops/dev={r['hlo_flops']:.2e}, bytes/dev="
                 f"{r['hlo_bytes']:.2e}, coll/dev={r['collective_bytes']:.2e} "
                 f"({colls}); MODEL_FLOPS/flops={r['useful_ratio']:.2f}; "
-                f"row of {r.get('row_entries', 1)} entries; "
+                f"walked: one entry of a row of "
+                f"{r.get('row_entries', 1)} entries; "
                 f"fix: {FIX_NOTES[r['bottleneck']]}.")
     return "\n".join(out)
 

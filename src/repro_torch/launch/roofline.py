@@ -12,11 +12,11 @@ data-sheet figures, not measurements:
   memory term     = hbm_bytes / HBM_BW
   collective term = collective_bytes / NVLINK_BW
 
-The figures are per device (the walk runs one DP row; see
-``launch/dryrun.py``). The port computes a DP row's work on the row's
-first entry ("model" splits storage, not compute: ``models/sharding.py``),
-so on a mesh whose "model" axis is > 1 the compute and memory terms are
-the whole row's, which ``row_entries`` records.
+The figures are per device: the walk runs one mesh entry, the first
+entry of the first DP row, which computes its tensor-parallel slice of
+each split sublayer and the sublayers the rules keep whole over "model"
+(see ``launch/dryrun.py`` and ``models/sharding.py``); ``row_entries``
+records the size of its row.
 """
 from __future__ import annotations
 
@@ -45,7 +45,7 @@ class Roofline:
     collective_s: float = 0.0
     bottleneck: str = ""
     useful_ratio: float = 0.0   # MODEL_FLOPS / (flops * chips)
-    row_entries: int = 1        # mesh entries whose compute the row does
+    row_entries: int = 1        # the entries of the walked entry's DP row
 
     def finalize(self):
         self.compute_s = self.hlo_flops / PEAK_FLOPS

@@ -11,13 +11,18 @@ score matrix. Its products are ``torch.einsum`` calls: the JAX package
 computes them outside any Pallas kernel, so no hand-written kernel is
 due, and no library attention is used.
 
-Over a mesh (``rules`` from ``sharding.make_rules`` with the DP rows this
-call computes under ``"_rows"``), a cache whose leaves are ``Sharded``
-takes one of two routes: single-token decode of a global-attention layer
-runs sequence-parallel (:func:`seq_sharded_decode_attention`), anything
-else gathers the row's cache onto the row's device, runs the plain route
-and writes the row's region back into the blocks. The reference's
-sharding constraints have no counterpart (see ``sharding.py``).
+Over a mesh, the sublayers run per entry of a DP row (``model.py``):
+:func:`mlp_block` given an entry's hidden columns returns its partial
+output; :func:`attention_entries` and :func:`moe_entries` take every
+computing entry's input and weights at once, since their entries trade
+values mid-way (q's heads for the sequence-parallel decode, the fresh
+k/v for the cache, the router's logits). A cache whose leaves are
+``Sharded`` takes one of two routes: single-token decode of a
+global-attention layer runs sequence-parallel
+(:func:`seq_sharded_decode_attention`), anything else gathers each
+entry's kv heads of the row's cache onto it, runs the plain route and
+writes the region back into the blocks. The reference's sharding
+constraints have no counterpart (see ``sharding.py``).
 """
 from __future__ import annotations
 
@@ -26,7 +31,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .sharding import Sharded, dp_axes
+from .sharding import dp_axes
 
 NEG_INF = -1e30
 
@@ -191,7 +196,9 @@ def seq_sharded_decode_attention(q, cache, k_new, v_new, positions, cfg,
     partials then merge on the row's device as the reference's pmax/psum
     do: m_g = max, corr = exp(m - m_g), l_g = sum(l·corr), acc_g =
     sum(acc·corr) in fp32, out = acc_g / max(l_g, 1e-30) in q's dtype.
-    The cache is updated in place. Returns (out (B, 1, H, Dh), cache).
+    The cache is updated in place. Inside ``mesh.walk`` only the walked
+    entries compute: the home's partial stands in for another's in the
+    merge. Returns (out (B, 1, H, Dh), cache).
     """
     B, S, H, Dh = q.shape
     Kh = k_new.shape[2]
@@ -208,12 +215,11 @@ def seq_sharded_decode_attention(q, cache, k_new, v_new, positions, cfg,
     for row in rows:
         rs = slice(off, off + row.size)
         off += row.size
-        parts = []
-        for e in row.entries:
-            send = lambda t: mesh.move(t, row.home, e,       # noqa: E731
-                                       "collective-permute")
-            qL, kN, vN, pos = (send(t) for t in (q[rs], k_new[rs],
-                                                 v_new[rs], positions))
+        ins = [mesh.spread(t, row.home, row.entries, "collective-permute")
+               for t in (q[rs], k_new[rs], v_new[rs], positions)]
+        parts = {}
+        for e in mesh.computing(row.entries):
+            qL, kN, vN, pos = (t[e] for t in ins)
             kC, vC, pC = K.blocks[e], V.blocks[e], Pc.blocks[e]
             lo, hi = Pc.boxes[e][0]
             Bl, Sloc = qL.shape[0], hi - lo
@@ -231,11 +237,12 @@ def seq_sharded_decode_attention(q, cache, k_new, v_new, positions, cfg,
             if causal:
                 mask = mask & (pos[0] >= pC)[None, None, :]
             mask = mask.expand(Bl, S, Sloc)
-            acc, m, l = _flash_unnormalized(qL.reshape(Bl, S, Kh, G, Dh),
-                                            kR, vC, mask, scale,
-                                            cfg.attn_chunk)
-            parts.append([mesh.move(t, e, row.home, "all-reduce")
-                          for t in (acc, m, l)])
+            parts[e] = _flash_unnormalized(qL.reshape(Bl, S, Kh, G, Dh),
+                                           kR, vC, mask, scale,
+                                           cfg.attn_chunk)
+        parts = list(zip(*(mesh.gather({e: p[i] for e, p in parts.items()},
+                                       row.entries, row.home, "all-reduce")
+                           for i in range(3))))
         m_g = parts[0][1]
         for _, m, _ in parts[1:]:
             m_g = torch.maximum(m_g, m)
@@ -254,34 +261,41 @@ def seq_sharded_decode_attention(q, cache, k_new, v_new, positions, cfg,
     return out, cache
 
 
-def _attend_sharded_cache(q, k, v, cache, positions, cfg, rules, causal,
+def gather_pieces(mesh, parts: dict, want, dst: int, dim: int):
+    """The pieces of entries ``want`` (``parts``: entry -> tensor)
+    all-gathered onto ``dst`` and concatenated along ``dim``."""
+    out = mesh.gather(parts, want, dst, "all-gather")
+    return out[0] if len(out) == 1 else torch.cat(out, dim)
+
+
+def _attend_sharded_cache(qkv, cache, positions, cfg, row, heads, causal,
                           window):
-    """Attention of ``rules["_rows"]`` over a cache of ``Sharded`` leaves:
-    the sequence-parallel decode where the reference takes it, else each
-    row's region of the cache gathered onto the row's device, the plain
-    route, and the region written back to the row's entries (its new
-    slots among it)."""
-    mesh, rows = rules["_mesh"], rules["_rows"]
-    if seq_shardable(q.shape[1], window, rules, cache["k"].shape[1]):
-        return seq_sharded_decode_attention(q, cache, k, v, positions, cfg,
-                                            mesh, causal=causal,
-                                            rows=rows)[0]
-    outs, off = [], 0
-    for row in rows:
-        rs = slice(off, off + row.size)
-        off += row.size
-        regions = {n: ((row.start, row.start + row.size),)
-                   + tuple((0, d) for d in cache[n].shape[1:])
-                   for n in ("k", "v")}
-        regions["pos"] = None
-        plain = {n: cache[n].read(row.home, regions[n], prefer=row.entries)
-                 for n in ("k", "v", "pos")}
-        outs.append(_attend_cache(q[rs], k[rs], v[rs], plain, positions,
-                                  cfg, causal, window))
-        for n in ("k", "v", "pos"):
-            cache[n].write(plain[n], row.home, regions[n],
-                           entries=row.entries)
-    return outs[0] if len(outs) == 1 else torch.cat(outs)
+    """Attention over a cache of ``Sharded`` leaves: for each computing
+    entry, the row's region of its kv heads gathered onto it (a copy),
+    the plain route there; then each distinct region written back to the
+    row's entries' blocks by its first entry (its new slots among it),
+    pos by the row's home."""
+    Smax, hd = cache["k"].shape[1], cache["k"].shape[3]
+    outs, copies = {}, {}
+    for e, (q, k, v) in qkv.items():
+        lo = heads[e][1]
+        region = ((row.start, row.start + row.size), (0, Smax),
+                  (lo, lo + k.shape[2]), (0, hd))
+        plain = {n: cache[n].read(e, region, prefer=row.entries)
+                 for n in ("k", "v")}
+        plain["pos"] = cache["pos"].read(e, prefer=row.entries)
+        # a read inside one block is a view of it: the route writes in place
+        plain = {n: t.clone() if t._base is not None else t
+                 for n, t in plain.items()}
+        outs[e] = _attend_cache(q, k, v, plain, positions[e], cfg, causal,
+                                window)
+        copies.setdefault(region, (e, plain))
+    for region, (e, plain) in copies.items():
+        for n in ("k", "v"):
+            cache[n].write(plain[n], e, region, entries=row.entries)
+    e, plain = next(iter(copies.values()))          # the home's
+    cache["pos"].write(plain["pos"], e, entries=row.entries)
+    return outs
 
 
 def _attend_cache(q, k, v, cache, positions, cfg, causal, window):
@@ -315,44 +329,104 @@ def _attend_cache(q, k, v, cache, positions, cfg, causal, window):
     return out
 
 
-def attention_block(x, p, cfg, rules=None, *, positions, causal: bool,
+def _qkv(x, p, cfg, positions):
+    """The pre-norm projections: q (roped), k and v (unroped), their head
+    counts read off the weights (an entry's slice holds fewer)."""
+    B, S, _ = x.shape
+    hd = cfg.hd
+    h = norm(x, p["norm"], cfg.norm_type)
+    q = (h @ p["wq"]).reshape(B, S, -1, hd)
+    k = (h @ p["wk"]).reshape(B, S, -1, hd)
+    v = (h @ p["wv"]).reshape(B, S, -1, hd)
+    return rope(q, positions, cfg.rope_theta), k, v
+
+
+def _self_attend(q, k, v, positions, cfg, causal, window):
+    return flash_attention(q, rope(k, positions, cfg.rope_theta), v,
+                           q_pos=positions, k_pos=positions, causal=causal,
+                           window=window, chunk=cfg.attn_chunk,
+                           causal_skip=cfg.causal_skip)
+
+
+def attention_block(x, p, cfg, *, positions, causal: bool,
                     window: int | None, cache=None):
     """Pre-norm GQA attention with an optional KV cache (decode).
 
-    p: dict(wq (d, H*hd), wk/wv (d, Kh*hd), wo_attn (H*hd, d), norm (d,)).
-    cache: None | dict(k (B, Smax, Kh, hd) UNROPED, v likewise, pos
-    (Smax,) absolute positions, -1 = empty), plain tensors or, over a
-    mesh, ``Sharded`` (see the module docstring). Windowed layers use a
-    ring buffer (Smax == window), global layers a linear one; K is roped
-    at use time from the stored positions, so ring overwrites stay
-    correct. The cache's tensors are updated IN PLACE (the reference
-    returns new arrays); the returned dict holds them. Returns (out,
-    new_cache).
+    p: dict(wq (d, H*hd), wk/wv (d, Kh*hd), wo_attn (H*hd, d), norm (d,));
+    H and Kh are read off the weights. cache: None | dict(k (B, Smax,
+    Kh, hd) UNROPED, v likewise, pos (Smax,) absolute positions, -1 =
+    empty). Windowed layers use a ring buffer (Smax == window), global
+    layers a linear one; K is roped at use time from the stored
+    positions, so ring overwrites stay correct. The cache's tensors are
+    updated IN PLACE (the reference returns new arrays); the returned
+    dict holds them. Over a mesh see :func:`attention_entries`. Returns
+    (out, new_cache).
     """
     B, S, _ = x.shape
-    H, Kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    h = norm(x, p["norm"], cfg.norm_type)
-    q = (h @ p["wq"]).reshape(B, S, H, hd)
-    k = (h @ p["wk"]).reshape(B, S, Kh, hd)
-    v = (h @ p["wv"]).reshape(B, S, Kh, hd)
-    q = rope(q, positions, cfg.rope_theta)
-
+    q, k, v = _qkv(x, p, cfg, positions)
     if cache is None:
-        k = rope(k, positions, cfg.rope_theta)
-        out = flash_attention(q, k, v, q_pos=positions, k_pos=positions,
-                              causal=causal, window=window,
-                              chunk=cfg.attn_chunk,
-                              causal_skip=cfg.causal_skip)
-        new_cache = None
-    elif isinstance(cache["k"], Sharded):
-        out = _attend_sharded_cache(q, k, v, cache, positions, cfg, rules,
-                                    causal, window)
-        new_cache = cache
+        out = _self_attend(q, k, v, positions, cfg, causal, window)
     else:
         out = _attend_cache(q, k, v, cache, positions, cfg, causal, window)
-        new_cache = cache
-    out = out.reshape(B, S, H * hd) @ p["wo_attn"]
-    return out, new_cache
+    return out.reshape(B, S, -1) @ p["wo_attn"], cache
+
+
+def entry_heads(cfg, row, n_local: int) -> dict:
+    """Each entry of ``row``'s first q head and first kv head when each
+    takes ``n_local`` q heads in "model" order (all of them: the row's
+    home alone): entry j's heads start at j·n_local, and under GQA q head
+    h reads kv head h // (H / Kh)."""
+    G = cfg.n_heads // cfg.n_kv_heads
+    return {e: (j * n_local, j * n_local // G)
+            for j, e in enumerate(row.entries)}
+
+
+def attention_entries(xs, ps, cfg, rules, *, row, positions, causal: bool,
+                      window: int | None, cache=None):
+    """Attention over a mesh row, tensor-parallel: ``xs`` and ``ps`` map
+    each computing entry to its input (B_r, S, d) and weights on its
+    device — its q heads' columns of ``wq`` and rows of ``wo_attn``, its
+    kv heads (or the one its q heads read) of ``wk``/``wv`` — or the
+    row's home alone to the whole weights. Returns each entry's partial
+    output (its heads through its rows of ``wo_attn``), which the row
+    all-reduces.
+
+    With a ``Sharded`` cache: the sequence-parallel decode takes every q
+    head (the reference's ``shard_map`` takes q replicated), so q's heads
+    and the fresh k/v are all-gathered onto the home, the merged output
+    goes back to each entry for its heads; otherwise
+    :func:`_attend_sharded_cache`. ``positions``: on the home's device.
+    """
+    mesh = rules["_mesh"]
+    home = row.home
+    pos = {e: positions.to(mesh.devices[e]) for e in xs}
+    qkv = {e: _qkv(xs[e], ps[e], cfg, pos[e]) for e in xs}
+    n_local = next(iter(qkv.values()))[0].shape[2]
+    heads = entry_heads(cfg, row, n_local)
+    B, S = xs[home].shape[:2]
+    if cache is None:
+        outs = {e: _self_attend(q, k, v, pos[e], cfg, causal, window)
+                for e, (q, k, v) in qkv.items()}
+    elif seq_shardable(S, window, rules, cache["k"].shape[1]):
+        if n_local == cfg.n_heads:          # the whole block on the home
+            ents = kv_first = (home,)
+        else:
+            ents = row.entries
+            kv_first = [e for i, e in enumerate(ents) if i == 0
+                        or heads[e][1] != heads[ents[i - 1]][1]]
+        q = gather_pieces(mesh, {e: t[0] for e, t in qkv.items()},
+                          ents, home, 2)
+        k, v = (gather_pieces(mesh, {e: t[i] for e, t in qkv.items()},
+                              kv_first, home, 2) for i in (1, 2))
+        out = seq_sharded_decode_attention(q, cache, k, v, positions, cfg,
+                                           mesh, causal=causal,
+                                           rows=(row,))[0]
+        outs = mesh.spread(out, home, ents, "all-reduce", lambda t, e: t[
+            :, :, heads[e][0]:heads[e][0] + n_local])
+    else:
+        outs = _attend_sharded_cache(qkv, cache, pos, cfg, row, heads,
+                                     causal, window)
+    return {e: outs[e].reshape(B, S, -1) @ ps[e]["wo_attn"] for e in xs}
 
 
 def _write(ck, cv, cpos, k, v, positions):
@@ -377,7 +451,8 @@ def _act(x, kind: str):
 
 
 def mlp_block(x, p, cfg):
-    """Pre-norm MLP: gated (SwiGLU-style) or plain, activation per config."""
+    """Pre-norm MLP: gated (SwiGLU-style) or plain, activation per config.
+    Given an entry's hidden columns of the weights, its partial output."""
     h = norm(x, p["norm"], cfg.norm_type)
     u = h @ p["wi"]
     if cfg.mlp_gated:
@@ -396,32 +471,19 @@ def top_k(x, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def moe_block(x, p, cfg, stats=None):
-    """Dropped-token top-k MoE with sort-based dispatch.
-
-    Routing and capacity are per routing group: per batch row, or the
-    whole batch when S == 1 (decode). Each (token, k) is ranked within its
-    expert's queue by a stable sort over expert ids; kept tokens go to
-    slot e·C + rank of a fixed (E·C + 1, d) buffer whose last row swallows
-    the capacity drops; the experts run on (G, E, C, d), and the weighted
-    outputs are summed back per token with ``index_add_`` (on CUDA its
-    float sum order is not fixed: the K terms of a token may add in
-    another order than on the CPU). Returns (out, aux_loss); with a list
-    ``stats``, also appends the groups' (me, ce) (G, E), from which a
-    mesh's DP rows rebuild the global batch's aux loss.
-    """
-    B, S, d = x.shape
-    E, K = cfg.n_experts, cfg.experts_per_token
-    groups, Tg = (1, B) if S == 1 else (B, S)
+def _route(logits, cfg):
+    """Top-k routing of one layer's tokens from their fp32 router logits
+    (G, Tg, E): (probs, e_flat, slot, w_flat, C). Each (token, k) is
+    ranked within its expert's queue by a stable sort over expert ids;
+    a kept one goes to slot e·C + rank, a dropped one to E·C."""
+    groups, Tg, E = logits.shape
+    K = cfg.experts_per_token
     C = max(int(math.ceil(Tg / E * K * cfg.capacity_factor)), 4)
-    dev = x.device
-
-    h = norm(x, p["norm"], cfg.norm_type).reshape(groups, Tg, d)
-    probs = torch.softmax(h.float() @ p["router"].float(), dim=-1)
+    dev = logits.device
+    probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = top_k(probs, K)                     # (G, Tg, K)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
     e_flat = gate_idx.reshape(groups, Tg * K)
-    t_flat = torch.arange(Tg, device=dev).repeat_interleave(K)
     w_flat = gate_vals.reshape(groups, Tg * K)
     # rank within the expert's queue (stable sort by expert id)
     e_s, order = torch.sort(e_flat, dim=-1, stable=True)
@@ -431,30 +493,108 @@ def moe_block(x, p, cfg, stats=None):
     rank_s = idx - torch.cummax(torch.where(seg, idx, 0), dim=1).values
     rank = torch.zeros_like(rank_s).scatter_(1, order, rank_s)
     slot = torch.where(rank < C, e_flat * C + rank, E * C)    # drop row
-    # only the drop row is written more than once, and it is discarded
-    xb = h.new_zeros((groups, E * C + 1, d)).scatter_(
-        1, slot[..., None].expand(-1, -1, d), h[:, t_flat])
-    xe = xb[:, :E * C].reshape(groups, E, C, d)
-    me = probs.mean(dim=1)                                    # (G, E)
-    ce = torch.zeros((groups, E), dtype=torch.float32, device=dev).scatter_add_(
-        1, e_flat, torch.ones_like(w_flat)) / (Tg * K) * E
+    return probs, e_flat, slot, w_flat, C
 
+
+def _route_stats(probs, e_flat):
+    """The groups' (me, ce) (G, E): mean router probability and the
+    share of (token, k) picks per expert, times E."""
+    groups, Tk = e_flat.shape
+    E = probs.shape[-1]
+    me = probs.mean(dim=1)
+    ce = torch.zeros((groups, E), dtype=torch.float32,
+                     device=probs.device).scatter_add_(
+        1, e_flat, torch.ones(e_flat.shape, dtype=torch.float32,
+                              device=probs.device)) / Tk * E
+    return me, ce
+
+
+def _experts(h, routing, p, lo: int, cfg):
+    """The summed output (G·Tg, d) of experts [lo, lo + E_p) (E_p =
+    ``p["ewi"]``'s first dim: an entry's experts, or all of them) for
+    ``routing`` = (slot, w_flat, C): their kept (token, k) rows go to a
+    fixed (E_p·C + 1, d) buffer whose last row swallows every other
+    write, the experts run on (G, E_p, C, d), and the weighted outputs
+    are summed back per token with ``index_add_`` (on CUDA its float sum
+    order is not fixed: the K terms of a token may add in another order
+    than on the CPU)."""
+    groups, Tg, d = h.shape
+    slot, w_flat, C = routing
+    Ep = p["ewi"].shape[0]
+    K = slot.shape[1] // Tg
+    dev = h.device
+    t_flat = torch.arange(Tg, device=dev).repeat_interleave(K)
+    mine = (slot >= lo * C) & (slot < (lo + Ep) * C)
+    sl = torch.where(mine, slot - lo * C, Ep * C)
+    # only the drop row is written more than once, and it is discarded
+    xb = h.new_zeros((groups, Ep * C + 1, d)).scatter_(
+        1, sl[..., None].expand(-1, -1, d), h[:, t_flat])
+    xe = xb[:, :Ep * C].reshape(groups, Ep, C, d)
     u = torch.einsum("gecd,edf->gecf", xe, p["ewi"])
     if cfg.mlp_gated:
         u = u * _act(torch.einsum("gecd,edf->gecf", xe, p["ewg"]),
                      cfg.mlp_act)
     else:
         u = _act(u, cfg.mlp_act)
-    ye = torch.einsum("gecf,efd->gecd", u, p["ewo"])          # (G,E,C,d)
-
-    yb = torch.cat([ye.reshape(groups, E * C, d),
+    ye = torch.einsum("gecf,efd->gecd", u, p["ewo"])          # (G,Ep,C,d)
+    yb = torch.cat([ye.reshape(groups, Ep * C, d),
                     ye.new_zeros((groups, 1, d))], dim=1)     # drop row = 0
-    y_rec = torch.gather(yb, 1, slot[..., None].expand(-1, -1, d)) \
+    y_rec = torch.gather(yb, 1, sl[..., None].expand(-1, -1, d)) \
         * w_flat[..., None].to(ye.dtype)
     tok = (t_flat + torch.arange(groups, device=dev)[:, None] * Tg).reshape(-1)
-    out = ye.new_zeros((groups * Tg, d)).index_add_(
+    return ye.new_zeros((groups * Tg, d)).index_add_(
         0, tok, y_rec.reshape(-1, d))
+
+
+def _groups(x):
+    """Routing groups: per batch row, or the whole batch when S == 1."""
+    B, S, _ = x.shape
+    return (1, B) if S == 1 else (B, S)
+
+
+def moe_block(x, p, cfg):
+    """Dropped-token top-k MoE with sort-based dispatch.
+
+    Routing and capacity are per routing group: per batch row, or the
+    whole batch when S == 1 (decode); see :func:`_route` and
+    :func:`_experts`. Over a mesh see :func:`moe_entries`. Returns (out,
+    aux_loss).
+    """
+    B, S, d = x.shape
+    groups, Tg = _groups(x)
+    h = norm(x, p["norm"], cfg.norm_type).reshape(groups, Tg, d)
+    probs, e_flat, slot, w_flat, C = _route(
+        h.float() @ p["router"].float(), cfg)
+    me, ce = _route_stats(probs, e_flat)
+    out = _experts(h, (slot, w_flat, C), p, 0, cfg)
     aux = (me.mean(0) * ce.mean(0)).sum()
-    if stats is not None:
-        stats.append((me, ce))
     return out.reshape(B, S, d), aux
+
+
+def moe_entries(xs, ps, cfg, mesh, row, stats: list):
+    """MoE over a mesh row, expert-parallel: ``xs`` and ``ps`` map each
+    computing entry to its input (B_r, S, d) and weights — its experts'
+    columns of the router and its experts of ``ewi``/``ewg``/``ewo`` —
+    on its device. Each entry's router logits (G, Tg, E_p) are
+    all-gathered onto every entry, which routes alike (equal inputs give
+    equal integer work) and runs its experts; returns each entry's
+    partial output, which the row all-reduces, and appends the home's
+    (me, ce) to ``stats``."""
+    x = next(iter(xs.values()))
+    B, S, d = x.shape
+    groups, Tg = _groups(x)
+    hs = {e: norm(t, ps[e]["norm"], cfg.norm_type).reshape(groups, Tg, d)
+          for e, t in xs.items()}
+    logits = mesh.all_gather({e: hs[e].float() @ ps[e]["router"].float()
+                              for e in xs}, row.entries, "all-gather")
+    Ep = ps[row.home]["ewi"].shape[0]
+    out = {}
+    for e in xs:
+        probs, e_flat, slot, w_flat, C = _route(torch.cat(logits[e], -1),
+                                                cfg)
+        if e == row.home:
+            stats.append(_route_stats(probs, e_flat))
+        lo = row.entries.index(e) * Ep
+        out[e] = _experts(hs[e], (slot, w_flat, C), ps[e], lo,
+                          cfg).reshape(B, S, d)
+    return out

@@ -29,12 +29,14 @@ pattern repeat.
 
 Over a mesh (``rules`` from ``sharding.make_rules``), ``forward``,
 ``prefill``, ``decode_step``, ``loss_fn`` and ``train_step_fn`` run each
-DP row's slice of the batch on the row's first entry. The model is a
-:class:`ShardedLM` (parameters as ``Sharded`` blocks; a row gathers one
-layer at a time and runs the layer's :class:`Block` through
-``torch.func.functional_call``) or an ``LM`` (its parameters then serve
-every row, as the reference's replicated params do); the cache's leaves
-are ``Sharded`` by ``sharding.cache_spec_tree``. Without rules nothing
+DP row's slice of the batch over the row's entries, tensor-parallel over
+"model" (``sharding.py``'s docstring): the model is a :class:`ShardedLM`
+(parameters as ``Sharded`` blocks), each entry gathers its box of one
+layer at a time and computes its slice of each split sublayer
+(:func:`_row_layer`); the residual lives on every entry. The cache's
+leaves are ``Sharded`` by ``sharding.cache_spec_tree``. A dry run
+computes one row (``rules["_rows"]``) on one entry (``Mesh.walk``),
+which counts the others' moves to and from it. Without rules nothing
 changes.
 """
 from __future__ import annotations
@@ -50,7 +52,8 @@ from torch.utils.checkpoint import checkpoint
 from ..util import resolve_device
 from . import sharding as shd
 from .config import ModelConfig
-from .layers import attention_block, mlp_block, moe_block, norm
+from .layers import (attention_block, attention_entries, entry_heads,
+                     gather_pieces, mlp_block, moe_block, moe_entries, norm)
 from .recurrent import mlstm_block, rglru_block, slstm_block
 
 MOE_AUX_WEIGHT = 0.01
@@ -113,8 +116,8 @@ class Attention(_Sublayer):
         self.cfg = cfg
         self.window = cfg.window if kind == "local_attn" else None
 
-    def forward(self, x, *, positions, cache=None, rules=None):
-        return attention_block(x, self.tree(), self.cfg, rules,
+    def forward(self, x, *, positions, cache=None):
+        return attention_block(x, self.tree(), self.cfg,
                                positions=positions,
                                causal=not self.cfg.is_encoder,
                                window=self.window, cache=cache)
@@ -138,7 +141,7 @@ class RGLRU(_Sublayer):
             "w_out": _w((dr, d), dt, out_scale)}, device)
         self.cfg = cfg
 
-    def forward(self, x, *, positions, cache=None, rules=None):
+    def forward(self, x, *, positions, cache=None):
         return rglru_block(x, self.tree(), self.cfg, state=cache)
 
 
@@ -159,7 +162,7 @@ class MLSTM(_Sublayer):
             "w_out": _w((H * hd, d), dt, out_scale)}, device)
         self.cfg = cfg
 
-    def forward(self, x, *, positions, cache=None, rules=None):
+    def forward(self, x, *, positions, cache=None):
         return mlstm_block(x, self.tree(), self.cfg, state=cache)
 
 
@@ -179,7 +182,7 @@ class SLSTM(_Sublayer):
             "w_out": _w((H * hd, d), dt, out_scale)}, device)
         self.cfg = cfg
 
-    def forward(self, x, *, positions, cache=None, rules=None):
+    def forward(self, x, *, positions, cache=None):
         return slstm_block(x, self.tree(), self.cfg, state=cache)
 
 
@@ -215,8 +218,8 @@ class MoE(_Sublayer):
         super().__init__(spec, device)
         self.cfg = cfg
 
-    def forward(self, x, stats=None):
-        return moe_block(x, self.tree(), self.cfg, stats)
+    def forward(self, x):
+        return moe_block(x, self.tree(), self.cfg)
 
 
 MIXERS = {"attn": Attention, "local_attn": Attention, "rglru": RGLRU,
@@ -246,14 +249,13 @@ class Block(nn.Module):
         keys = (self.mixer_key,) + ((self.ffn_key,) if self.ffn_key else ())
         return [(k, getattr(self, k)) for k in keys]
 
-    def forward(self, x, *, positions, cache=None, rules=None,
-                moe_stats=None):
+    def forward(self, x, *, positions, cache=None):
         mix, new_c = getattr(self, self.mixer_key)(x, positions=positions,
-                                                   cache=cache, rules=rules)
+                                                   cache=cache)
         x = x + mix
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if self.ffn_key == "moe":
-            y, aux = self.moe(x, moe_stats)
+            y, aux = self.moe(x)
             x = x + y
         elif self.ffn_key == "mlp":
             x = x + self.mlp(x)
@@ -494,55 +496,57 @@ class ShardedLM:
 
 
 class _Gather(torch.autograd.Function):
-    """A parameter's blocks gathered onto a row's first entry; backward
-    adds the row's gradient, cut by the fp32 buffers' spec, into each
-    target entry's buffer (a reduce-scatter over the rows, an all-reduce
-    for a replicated buffer). ``anchor`` is a 0-d tensor that requires
-    grad, so the gathered tensor is part of the graph."""
+    """An entry's ``region`` of a parameter (default the whole of it),
+    gathered from the blocks onto the entry; backward adds the entry's
+    gradient of the region into every target entry's fp32 buffer block
+    that overlaps it (a reduce-scatter over the rows and the entries
+    that share the region, an all-reduce for a replicated buffer; inside
+    ``Mesh.walk``, counted only towards an entry that does not compute).
+    ``anchor`` is a 0-d tensor that requires grad, so the gathered
+    tensor is part of the graph."""
 
     @staticmethod
-    def forward(ctx, anchor, sharded, row, buf, targets):
-        ctx.row, ctx.buf, ctx.targets = row, buf, targets
-        return sharded.read(row.home, prefer=row.entries)
+    def forward(ctx, anchor, sharded, entry, region, prefer, buf):
+        ctx.entry, ctx.buf = entry, buf
+        ctx.region = region if region is not None else tuple(
+            (0, n) for n in sharded.shape)
+        return sharded.read(entry, region, prefer=prefer)
 
     @staticmethod
     def backward(ctx, g):
-        buf, row = ctx.buf, ctx.row
+        buf, e, region = ctx.buf, ctx.entry, ctx.region
         kind = ("reduce-scatter" if any(buf.spec) else "all-reduce")
-        zero = (0,) * buf.ndim
-        for e, box in enumerate(buf.boxes):
-            if e in ctx.targets:
-                buf.blocks[e].add_(buf.mesh.move(g[shd._index(box, zero)],
-                                                 row.home, e, kind))
-            else:       # a dry run: another device's share, counted
-                buf.mesh.count(kind, buf.block_numel(e) * g.element_size(),
-                               row.home, e)
-        return None, None, None, None, None
+        origin = [lo for lo, _ in region]
+        for b, box in enumerate(buf.boxes):
+            ov = shd._overlap(box, region)
+            if ov is None:
+                continue
+            piece = buf.mesh.move(g[shd._index(ov, origin)], e, b, kind)
+            if buf.mesh.computes(b):
+                buf.blocks[b][shd._index(ov, [lo for lo, _ in box])].add_(
+                    piece)
+        return None, None, None, None, None, None
 
 
-class _Grad:
-    """Where a mesh loss's gradients go: fp32 buffers by name (``Sharded``
-    by the optimizer state's specs) and the entries whose buffers take
-    them (a dry run keeps only its own)."""
+def _row_params(model, row, grads: dict | None):
+    """A getter ``get(name, entry, region=None, whole=False)`` of a
+    parameter on an entry of ``row``: its tensor-parallel box
+    (``sharding.model_box``) by default, the whole of it with
+    ``whole``, or ``region``. With ``grads`` (fp32 ``Sharded`` buffers
+    by name) the gathered tensors' gradients go there."""
+    anchors = {}
 
-    def __init__(self, bufs: dict, targets=None):
-        self.bufs = bufs
-        self.targets = targets
-
-
-def _row_params(model, row, grad: _Grad | None):
-    """A getter of parameters by name on ``row``'s first entry."""
-    anchor = None
-    if grad is not None:
-        anchor = torch.zeros((), device=row.device, requires_grad=True)
-
-    def get(name):
+    def get(name, entry, region=None, whole=False):
         sh = model.params[name]
-        if grad is None:
-            return sh.read(row.home, prefer=row.entries)
-        targets = range(sh.mesh.size) if grad.targets is None \
-            else grad.targets
-        return _Gather.apply(anchor, sh, row, grad.bufs[name], targets)
+        if region is None and not whole:
+            region = shd.model_box(sh.shape, sh.spec, sh.mesh, entry)
+        if grads is None:
+            return sh.read(entry, region, prefer=row.entries)
+        if entry not in anchors:
+            anchors[entry] = torch.zeros((), device=sh.mesh.devices[entry],
+                                         requires_grad=True)
+        return _Gather.apply(anchors[entry], sh, entry, region, row.entries,
+                             grads[name])
     return get
 
 
@@ -556,26 +560,156 @@ def _take(x, lo: int, n: int, row, kind="all-to-all"):
     return x[lo:lo + n].to(row.device)
 
 
-def _mesh_rows(model, rules, B: int):
+def _mesh_rows(model, rules, B: int, cache=None):
     """The DP rows a mesh call computes: ``rules["_rows"]`` when given (a
-    dry run's one row), else every row of the mesh for batch B."""
+    dry run's one row), else every row of the mesh for batch B — only
+    the first when the batch is replicated over the rows (B does not
+    divide them) and no cache replica needs each row's update."""
     if rules.get("_rows") is not None:
         return list(rules["_rows"])
-    return rules["_mesh"].rows(shd._names(rules["batch"]), B)
+    rows = rules["_mesh"].rows(shd._names(rules["batch"]), B)
+    if cache is None and _replicated(rows, B):
+        return rows[:1]
+    return rows
+
+
+def _replicated(rows, B: int) -> bool:
+    """Whether each of several rows holds the whole batch."""
+    return len(rows) > 1 and rows[0].size == B
+
+
+def _all_reduce(mesh, row, parts: dict) -> dict:
+    """``parts`` (computing entry -> its partial, on it) summed onto each
+    of them as a ring does: entry j adds the j-th of m slices of the last
+    dim of every partial, in entry order (a reduce-scatter), then gathers
+    the others' sums (an all-gather); every element adds in entry order,
+    so every entry gets the same bits."""
+    ents = row.entries
+    m = len(ents)
+    if m == 1:
+        return parts
+    kind = "all-reduce"
+    cut = mesh.all_gather(parts, ents, kind, lambda t, d: torch.tensor_split(
+        t, m, dim=-1)[ents.index(d)])
+    sums = {}
+    for e, pieces in cut.items():
+        acc = pieces[0]
+        for p in pieces[1:]:
+            acc = acc + p
+        sums[e] = acc
+    return {e: torch.cat(got, dim=-1)
+            for e, got in mesh.all_gather(sums, ents, kind).items()}
+
+
+def _vocab_split(rules, row) -> bool:
+    """Whether the embedding rows and the head's columns split over the
+    row's entries (the "vocab" rule; granite-3-8b's odd vocab does not)."""
+    return rules.get("vocab") == "model" and len(row.entries) > 1
+
+
+def _attention_split(cfg, rules, row) -> bool:
+    """Whether attention splits by heads over the row: its heads on
+    "model" and each entry's q heads within whole kv groups (its kv
+    heads on "model" too) or within one (the kv head it reads, whole
+    over "model")."""
+    m = len(row.entries)
+    if rules.get("heads") != "model":
+        return False
+    G = cfg.n_heads // cfg.n_kv_heads
+    return rules.get("kv") == "model" or G % (cfg.n_heads // m) == 0
+
+
+def _sub_params(get, prefix, sub, e, split, row, cfg, rules):
+    """The sublayer's parameters on entry ``e``: its boxes when the
+    sublayer splits (for attention whose kv heads the rules replicate,
+    the one kv head its q heads read), else the whole of each."""
+    if not split:
+        return {n: get(prefix + n, e, whole=True) for n in sub.spec}
+    out = {}
+    for n, (shape, _dt, _init) in sub.spec.items():
+        region = None
+        if (n in ("wk", "wv") and isinstance(sub, Attention)
+                and rules.get("kv") != "model"):
+            kv = entry_heads(cfg, row, cfg.n_heads // len(row.entries))[e][1]
+            region = ((0, shape[0]), (kv * cfg.hd, (kv + 1) * cfg.hd))
+        out[n] = get(prefix + n, e, region=region)
+    return out
+
+
+def _embed(model, row, x_in, rules, get) -> dict:
+    """The row's input embeddings on each computing entry: with the vocab
+    split, each entry looks up the tokens in its rows (zeros elsewhere)
+    and the partials are all-reduced (one term a token: exact); else the
+    home's lookup, all-gathered."""
+    cfg = model.cfg
+    dt = torch_dtype(cfg)
+    mesh = rules["_mesh"]
+    if x_in.ndim == 3:
+        return mesh.spread(x_in.to(dt), row.home, row.entries, "all-gather")
+    if not _vocab_split(rules, row):
+        return mesh.spread(get("embedding", row.home, whole=True)[x_in].to(
+            dt), row.home, row.entries, "all-gather")
+    toks = mesh.spread(x_in, row.home, row.entries, "all-gather")
+    parts = {}
+    for e in toks:
+        emb = get("embedding", e)
+        n = emb.shape[0]
+        t = toks[e] - row.entries.index(e) * n
+        mine = (t >= 0) & (t < n)
+        parts[e] = torch.where(mine[..., None], emb[t.clamp(0, n - 1)], 0.0)
+    return {e: v.to(dt) for e, v in _all_reduce(mesh, row, parts).items()}
+
+
+def _row_layer(model, layer, prefix, row, xs, positions, c, rules, get,
+               st):
+    """One layer of a row: ``xs`` the residual on each computing entry;
+    each sublayer split over them or, when the rules keep it whole, on
+    the home and all-gathered; the partials all-reduced into every
+    entry's residual. Returns (xs, the recurrent mixer's new state or
+    None)."""
+    cfg = model.cfg
+    mesh = rules["_mesh"]
+    home = row.home
+    nc = None
+    for key, sub in layer.sublayers():
+        split = _split(cfg, rules, row, sub)
+        on = tuple(xs) if split else (home,)
+        ps = {e: _sub_params(get, prefix + key + ".", sub, e, split, row,
+                             cfg, rules) for e in on}
+        if isinstance(sub, Attention):
+            parts = attention_entries({e: xs[e] for e in on}, ps, cfg,
+                                      rules, row=row, positions=positions,
+                                      causal=not cfg.is_encoder,
+                                      window=sub.window, cache=c)
+        elif isinstance(sub, MLP):
+            parts = {e: mlp_block(xs[e], ps[e], cfg) for e in on}
+        elif isinstance(sub, MoE):
+            parts = moe_entries(xs, ps, cfg, mesh, row, st)
+        else:
+            y, nc = torch.func.functional_call(
+                sub, ps[home], (xs[home],),
+                {"positions": positions, "cache": c})
+            parts = {home: y}
+        if split:
+            ys = _all_reduce(mesh, row, parts)
+            xs = {e: xs[e] + ys[e] for e in xs}
+        else:
+            xs = mesh.spread(xs[home] + parts[home], home, row.entries,
+                             "all-gather")
+    return xs, nc
 
 
 def _row_hidden(model, row, x_in, positions, cache, rules, get):
-    """One DP row through the model: (hidden (B_r, S, d), per layer the
-    MoE (me, ce) of the row, or () for a layer without MoE)."""
+    """One DP row through the model: (hidden (B_r, S, d) on each
+    computing entry, per layer the MoE (me, ce) of the row or ())."""
     cfg = model.cfg
-    dt = torch_dtype(cfg)
-    x = get("embedding")[x_in].to(dt) if x_in.ndim == 2 else x_in.to(dt)
     rules_r = {**rules, "_rows": (row,)}
+    xs = _embed(model, row, x_in, rules_r, get)
+    ents = tuple(xs)
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
     stats = []
     for i, layer in enumerate(model.skeleton.layers):
         prefix = f"layers.{i}."
-        local = [n for n, _ in layer.named_parameters()]
         c = None if cache is None else cache[i]
         plain = None
         if c is not None and layer.kind not in ("attn", "local_attn"):
@@ -585,27 +719,34 @@ def _row_hidden(model, row, x_in, positions, cache, rules, get):
                 + tuple((0, d) for d in t.shape[1:]),
                 prefer=row.entries), c)
 
-        def run(x, layer=layer, prefix=prefix, local=local,
+        def run(*x, layer=layer, prefix=prefix,
                 c=c if plain is None else plain):
-            params = {n: get(prefix + n) for n in local}
             st = []
-            y, nc, _ = torch.func.functional_call(
-                layer, params, (x,), {"positions": positions, "cache": c,
-                                      "rules": rules_r, "moe_stats": st})
-            return (y, nc, *[t for pair in st for t in pair])
+            ys, nc = _row_layer(model, layer, prefix, row, dict(zip(ents, x)),
+                                positions, c, rules_r, get, st)
+            return (*ys.values(), nc, *[t for pair in st for t in pair])
 
         if remat:
-            y, _, *st = checkpoint(run, x, use_reentrant=False)
+            out = checkpoint(run, *xs.values(), use_reentrant=False)
         else:
-            y, nc, *st = run(x)
-            if plain is not None:
-                _map_cache(lambda sh, t: sh.write(t, row.home, (
-                    (row.start, row.start + row.size),)
-                    + tuple((0, d) for d in sh.shape[1:]),
-                    entries=row.entries), c, nc)
-        x = y
+            out = run(*xs.values())
+        n = len(ents)
+        xs, nc, st = dict(zip(ents, out[:n])), out[n], out[n + 1:]
+        if plain is not None:
+            _map_cache(lambda sh, t: sh.write(t, row.home, (
+                (row.start, row.start + row.size),)
+                + tuple((0, d) for d in sh.shape[1:]),
+                entries=row.entries), c, nc)
         stats.append(tuple(st))
-    return norm(x, get("final_norm"), cfg.norm_type), stats
+    fn = {e: get("final_norm", e, whole=True) for e in ents}
+    return {e: norm(x, fn[e], cfg.norm_type) for e, x in xs.items()}, stats
+
+
+def _split(cfg, rules, row, sub) -> bool:
+    """Whether a sublayer splits over the row's entries."""
+    if isinstance(sub, (MLP, MoE)):
+        return True
+    return isinstance(sub, Attention) and _attention_split(cfg, rules, row)
 
 
 def _mesh_aux(row_stats, device, mesh, rows):
@@ -628,24 +769,31 @@ def _mesh_aux(row_stats, device, mesh, rows):
     return aux
 
 
-def _head(model, get):
-    return get("embedding").T if model.cfg.tie_embeddings else get("lm_head")
+def _head(model, get, entry, whole=False):
+    """The (d, V) fp32 output projection on ``entry``: its vocab columns
+    (``embedding.T`` when tied), or the whole of it."""
+    if model.cfg.tie_embeddings:
+        return get("embedding", entry, whole=whole).T
+    return get("lm_head", entry, whole=whole)
 
 
-def _mesh_forward(model, inputs, rules, positions, cache, grad=None,
+def _mesh_forward(model, inputs, rules, positions, cache, grads=None,
                   offset=0, B=None):
-    """Each row's (hidden, MoE stats, getter) for rows [offset, offset +
-    B) of ``inputs`` (all of them by default)."""
+    """Each row's (row, hidden on each computing entry, MoE stats,
+    getter) for rows [offset, offset + B) of ``inputs`` (all of them by
+    default)."""
     if not isinstance(model, ShardedLM):
         raise ValueError("a mesh call needs a ShardedLM (ShardedLM.place)")
     B = inputs.shape[0] if B is None else B
     out = []
-    for row in _mesh_rows(model, rules, B):
+    for row in _mesh_rows(model, rules, B, cache):
         x_in = _take(inputs, offset + row.start, row.size, row)
-        get = _row_params(model, row, grad)
-        h, st = _row_hidden(model, row, x_in, positions.to(row.device),
-                            cache, rules, get)
-        out.append((row, h, st, get))
+        get = _row_params(model, row, grads)
+        hs, st = _row_hidden(model, row, x_in, positions.to(row.device),
+                             cache, rules, get)
+        out.append((row, hs, st, get))
+    if _replicated([r for r, *_ in out], B):
+        return out[:1]      # every row computed the same batch
     return out
 
 
@@ -677,9 +825,9 @@ def forward(model, inputs, rules=None, *, positions=None, cache=None):
         res = _mesh_forward(model, inputs, rules, positions, cache)
         rows = [r for r, *_ in res]
         mesh = rules["_mesh"]
-        hidden = _mesh_gather_rows(mesh, rows, [h for _, h, _, _ in res])
-        aux = _mesh_aux([st for _, _, st, _ in res], hidden.device, mesh,
-                        rows)
+        hidden = _mesh_gather_rows(mesh, rows,
+                                   [r[1][r[0].home] for r in res])
+        aux = _mesh_aux([r[2] for r in res], hidden.device, mesh, rows)
         return hidden, cache, aux
     dt = torch_dtype(cfg)
     if inputs.ndim == 2:
@@ -708,17 +856,25 @@ def forward(model, inputs, rules=None, *, positions=None, cache=None):
 
 
 def _logits(model, rules, tokens, positions, cache):
-    """The last position's fp32 logits (B, V): each row's on its device
-    over a mesh, gathered on the first row's."""
+    """The last position's fp32 logits (B, V): each row's on its home
+    over a mesh (with the vocab split, each entry's columns all-gathered
+    there), gathered on the first row's."""
     if (rules or {}).get("_mesh") is None:
         hidden, new_cache, _ = forward(model, tokens, positions=positions,
                                        cache=cache)
         return hidden[:, -1].float() @ model.head(), new_cache
+    mesh = rules["_mesh"]
     res = _mesh_forward(model, tokens, rules, positions, cache)
-    rows = [r for r, *_ in res]
-    logits = [h[:, -1].float() @ _head(model, get).float()
-              for _, h, _, get in res]
-    return _mesh_gather_rows(rules["_mesh"], rows, logits), cache
+    logits = []
+    for row, hs, _, get in res:
+        if not _vocab_split(rules, row):
+            logits.append(hs[row.home][:, -1].float()
+                          @ _head(model, get, row.home, whole=True))
+            continue
+        parts = {e: h[:, -1].float() @ _head(model, get, e)
+                 for e, h in hs.items()}
+        logits.append(gather_pieces(mesh, parts, row.entries, row.home, -1))
+    return _mesh_gather_rows(mesh, [r[0] for r in res], logits), cache
 
 
 # ------------------------------------------------------------ decode
@@ -745,11 +901,7 @@ def prefill(model, tokens, cache: list, rules=None):
 def _ce_sums(hidden, W, targets, cfg: ModelConfig):
     """The chunked CE's sums: (Σ (lse - label logit), Σ lse², valid token
     count) over the valid targets, a ``ce_chunk`` at a time."""
-    B, S, _ = hidden.shape
-    ck = min(cfg.ce_chunk, S)
-    nc = -(-S // ck)
-    h = F.pad(hidden, (0, 0, 0, nc * ck - S))
-    t = F.pad(targets, (0, nc * ck - S), value=-1)
+    h, t, ck, nc = _chunks(hidden, targets, cfg)
     Wf = W.float()
     dev = hidden.device
     loss = torch.zeros((), dtype=torch.float32, device=dev)
@@ -772,6 +924,68 @@ def _ce_mean(loss, zloss, count):
     return loss / n + Z_LOSS_WEIGHT * zloss / n
 
 
+def _chunks(hidden, targets, cfg):
+    """hidden and targets padded to whole ``ce_chunk``s (targets with -1),
+    the chunk length and count."""
+    S = hidden.shape[1]
+    ck = min(cfg.ce_chunk, S)
+    nc = -(-S // ck)
+    return (F.pad(hidden, (0, 0, 0, nc * ck - S)),
+            F.pad(targets, (0, nc * ck - S), value=-1), ck, nc)
+
+
+def _ce_sums_split(model, row, hs, targets, rules, get):
+    """:func:`_ce_sums` with the head's vocab columns split over the
+    row's entries: per chunk each entry takes its logits' max m_j and
+    s_j = Σ exp(l - m_j) and the label logit where its columns hold the
+    target (else 0); on the home, m = max_j m_j, lse = m + log Σ_j s_j ·
+    exp(m_j - m), the label logit the sum over the entries. The maxes
+    are constants of the gradient (they cancel in lse's)."""
+    cfg = model.cfg
+    mesh = rules["_mesh"]
+    home = row.home
+    ents = tuple(hs)
+    hp = {e: _chunks(h, targets, cfg)[0] for e, h in hs.items()}
+    _, tp, ck, nc = _chunks(hs[home], targets, cfg)
+    ts = mesh.spread(tp, home, row.entries, "all-gather")
+    Ws = {e: _head(model, get, e).float() for e in ents}
+    zero = dict(device=tp.device)
+    loss = torch.zeros((), dtype=torch.float32, **zero)
+    zloss = torch.zeros((), dtype=torch.float32, **zero)
+    count = torch.zeros((), dtype=torch.int32, **zero)
+    for c in range(nc):
+        sl = slice(c * ck, (c + 1) * ck)
+        stat = {"m": {}, "s": {}, "lab": {}}
+        for e in ents:
+            W = Ws[e]
+            n = W.shape[1]
+            logits = hp[e][:, sl].float() @ W                 # (B, ck, V_j)
+            m = logits.detach().amax(dim=-1)
+            t = ts[e][:, sl] - row.entries.index(e) * n
+            mine = (t >= 0) & (t < n)
+            lab = logits.gather(-1, t.clamp(0, n - 1).long()[..., None])
+            stat["m"][e] = m
+            stat["s"][e] = torch.exp(logits - m[..., None]).sum(-1)
+            stat["lab"][e] = torch.where(mine, lab[..., 0], 0.0)
+        ms, ss, labs = (mesh.gather(stat[k], row.entries, home, "all-reduce")
+                        for k in ("m", "s", "lab"))
+        mx = ms[0]
+        for m in ms[1:]:
+            mx = torch.maximum(mx, m)
+        tot = lab = None
+        for m, s_, lb in zip(ms, ss, labs):
+            term = s_ * torch.exp(m - mx)
+            tot = term if tot is None else tot + term
+            lab = lb if lab is None else lab + lb
+        lse = mx + torch.log(tot)
+        tc = tp[:, sl]
+        valid = tc >= 0
+        loss = loss + torch.where(valid, lse - lab, 0.0).sum()
+        zloss = zloss + torch.where(valid, lse.square(), 0.0).sum()
+        count = count + valid.sum(dtype=torch.int32)
+    return loss, zloss, count
+
+
 def chunked_ce(hidden, W, targets, cfg: ModelConfig):
     """Cross-entropy over sequence chunks of ``cfg.ce_chunk``, so the
     (B, S, V) logits never exist at once in the forward pass.
@@ -786,24 +1000,29 @@ def chunked_ce(hidden, W, targets, cfg: ModelConfig):
     return _ce_mean(loss, zloss, count), count
 
 
-def _mesh_loss(model, batch, rules, grad=None, offset=0, B=None):
+def _mesh_loss(model, batch, rules, grads=None, offset=0, B=None):
     """The loss of rows [offset, offset + B) of a global batch over a
     mesh: each row's CE sums and MoE statistics, all-reduced on the first
     row's entry into the unsharded loss of those rows."""
     mesh = rules["_mesh"]
     S = batch["targets"].shape[1]
     res = _mesh_forward(model, batch["inputs"], rules, torch.arange(
-        S, dtype=torch.int32, device=mesh.devices[0]), None, grad, offset, B)
+        S, dtype=torch.int32, device=mesh.devices[0]), None, grads, offset,
+        B)
     rows = [r for r, *_ in res]
     home = rows[0].home
     sums = None
-    for row, h, _, get in res:
+    for row, hs, _, get in res:
         t = _take(batch["targets"], offset + row.start, row.size, row)
-        part = [mesh.move(v, row.home, home, "all-reduce")
-                for v in _ce_sums(h, _head(model, get), t, model.cfg)]
+        if _vocab_split(rules, row):
+            row_sums = _ce_sums_split(model, row, hs, t, rules, get)
+        else:
+            row_sums = _ce_sums(hs[row.home], _head(model, get, row.home,
+                                                    whole=True), t, model.cfg)
+        part = [mesh.move(v, row.home, home, "all-reduce") for v in row_sums]
         sums = part if sums is None else [a + b for a, b in zip(sums, part)]
     ce = _ce_mean(*sums)
-    aux = _mesh_aux([st for _, _, st, _ in res], ce.device, mesh, rows)
+    aux = _mesh_aux([r[2] for r in res], ce.device, mesh, rows)
     loss = ce + MOE_AUX_WEIGHT * aux
     return loss, {"ce": ce, "aux": aux, "tokens": sums[2]}
 
@@ -842,7 +1061,7 @@ def train_step_fn(model, batch: dict, rules=None):
     ``Sharded`` buffers by the parameters' specs."""
     if (rules or {}).get("_mesh") is not None:
         grads = grad_buffers(model)
-        loss, metrics = _mesh_loss(model, batch, rules, _Grad(grads))
+        loss, metrics = _mesh_loss(model, batch, rules, grads)
         loss.backward()
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
                 grads)

@@ -6,9 +6,9 @@ single-pod. Logical axes used by the model code:
 
   batch   -> ("pod", "data")   pure DP (pods are extra DP)
   embed   -> "data"            FSDP / ZeRO-3: params sharded on d_model over
-                               the data axis; a DP row gathers one layer's
-                               params at a time (gather size = one layer's
-                               params)
+                               the data axis; each entry of a DP row
+                               gathers its "model" box of one layer's
+                               params at a time
   heads   -> "model"           attention heads (iff divisible)
   kv      -> "model" iff n_kv_heads % model == 0 else replicated
   mlp     -> "model"           the FFN hidden dim
@@ -34,18 +34,29 @@ entry is the same device.
 How the port computes over a mesh, against the reference's GSPMD:
 
 * DP: the global batch splits over the DP axes; each DP row computes its
-  slice on the row's first entry. FSDP: parameters, masters and moments
-  live as blocks by :func:`param_spec_tree`; a row gathers one layer's
-  parameters onto its device at a time, and the gradient goes back to
-  the blocks' fp32 buffers (a reduce-scatter summed over the rows).
-* The "model" axis shards **storage** only. Compute is split over
-  "model" in one place, the sequence-parallel decode
-  (``layers.seq_sharded_decode_attention``), the reference's one
-  explicit ``shard_map`` in the LM. GSPMD also splits the reference's
-  matmuls by heads, MLP and experts: the numbers and the per-device
-  state are the same either way, the per-device compute and
-  activations are not (a row computes its whole slice). Tensor-parallel
-  compute over "model" is not ported yet.
+  slice (a batch the DP size does not divide is replicated, and one row
+  computes it). FSDP: parameters, masters and moments live as blocks by
+  :func:`param_spec_tree`; each entry of a row gathers over "data" its
+  own "model" box of one layer's parameters at a time
+  (:func:`model_box`), and the gradient of that box goes back to the
+  blocks' fp32 buffers (a reduce-scatter summed over the rows).
+* Tensor parallelism over "model": entry j of a row (its "model"
+  coordinate) computes its slice of each sublayer from its box of the
+  weights, as GSPMD splits the reference's matmuls: attention by heads
+  (the columns of ``wq``, the rows of ``wo_attn``; its kv heads, or,
+  when the "kv" rule replicates them, the one kv head its q heads map
+  to under GQA), the MLP by its hidden columns, MoE by experts (the
+  router's logits all-gathered, the routing computed alike on every
+  entry), and, where ``vocab_ok``, the embedding rows and the head's
+  columns (the CE's logsumexp split over the entries). Every entry
+  holds the residual, and the entries' partial outputs are all-reduced
+  into it as a ring does (a reduce-scatter, then an all-gather; a
+  move's gradient is counted going back). Attention whose heads
+  "model" does not divide and the recurrent mixers (RG-LRU, mLSTM,
+  sLSTM) run whole on the row's first entry, and their output is
+  all-gathered to the others. The sequence-parallel decode
+  (``layers.seq_sharded_decode_attention``, the reference's one
+  explicit ``shard_map`` in the LM) all-gathers q's heads first.
 * ``constrain`` has no counterpart: eager torch propagates no sharding,
   and the port places every tensor explicitly.
 
@@ -109,6 +120,7 @@ class Mesh:
         self.shape = dict(zip(self.axis_names, shape))
         self.devices = tuple(devices)
         self.coords = list(itertools.product(*(range(s) for s in shape)))
+        self.walked = None
 
     @property
     def size(self) -> int:
@@ -121,23 +133,96 @@ class Mesh:
     def axis_size(self, name: str) -> int:
         return self.shape.get(name, 1)
 
+    @contextlib.contextmanager
+    def walk(self, entries):
+        """Inside the block only ``entries`` compute (a dry run's one
+        entry): the moves to or from the others are counted, not made
+        (:meth:`move`)."""
+        prev, self.walked = self.walked, tuple(entries)
+        try:
+            yield self
+        finally:
+            self.walked = prev
+
+    def computes(self, entry: int) -> bool:
+        """Whether ``entry`` computes: every entry does, but inside
+        :meth:`walk` only the walked ones."""
+        return self.walked is None or entry in self.walked
+
+    def computing(self, entries) -> tuple:
+        """Those of ``entries`` that compute."""
+        return tuple(e for e in entries if self.computes(e))
+
     def move(self, t: torch.Tensor, src: int, dst: int, kind: str,
              out: torch.Tensor | None = None) -> torch.Tensor:
         """``t`` from entry ``src`` to entry ``dst`` (into ``out`` when
         given, else a tensor on ``dst``'s device; the same tensor when the
-        entries share a device). A move between two entries reports its
-        bytes, tagged ``kind``, to the listeners, whatever their devices."""
-        self.count(kind, t.numel() * t.element_size(), src, dst)
+        entries share a device and no gradient flows). A move between two
+        entries reports its bytes, tagged ``kind``, to the listeners,
+        whatever their devices; under autograd so does its gradient's
+        move back (:data:`BACKWARD`). Inside :meth:`walk`, a move to or
+        from an entry that does not compute is counted and not made:
+        ``t`` stands in for the moved tensor (only its shape matters
+        there)."""
+        n = _nbytes(t)
+        self.count(kind, n, src, dst)
         if out is not None:
             return out.copy_(t)
+        if not (self.computes(src) and self.computes(dst)):
+            return self._counted(t, [(kind, dst, src, n)])
+        if src != dst and t.requires_grad and torch.is_grad_enabled():
+            return _Move.apply(t, self, src, dst, kind)
         return t.to(self.devices[dst])
+
+    def spread(self, t: torch.Tensor, src: int, dsts, kind: str,
+               piece=None) -> dict:
+        """``t``, or its ``piece(t, dst)``, moved from ``src`` to each
+        entry of ``dsts``: {dst: tensor on it} for those that compute.
+        Inside :meth:`walk` the moves to the others are counted, and so,
+        through ``t``, are their gradients' way back."""
+        back = []
+        for d in dsts:
+            if not self.computes(d) and d != src:
+                n = _nbytes(t if piece is None else piece(t, d))
+                self.count(kind, n, src, d)
+                back.append((kind, d, src, n))
+        t = self._counted(t, back)
+        return {d: self.move(t if piece is None else piece(t, d), src, d,
+                             kind) for d in self.computing(dsts)}
+
+    def gather(self, parts: dict, srcs, dst: int, kind: str) -> list:
+        """The tensors of entries ``srcs`` on ``dst``, in order, from
+        ``parts`` (entry -> tensor, for those that computed one). Inside
+        :meth:`walk`, ``dst``'s own stands in for another entry's."""
+        return [self.move(parts.get(e, parts[dst]), e, dst, kind)
+                for e in srcs]
+
+    def all_gather(self, parts: dict, entries, kind: str,
+                   piece=None) -> dict:
+        """Each entry's tensor in ``parts`` (or its ``piece(t, dst)``) on
+        every computing entry of ``entries``: {dst: [tensors in entries'
+        order]}. Inside :meth:`walk` a dst's own stands in for a tensor
+        that was not computed."""
+        got = {e: self.spread(t, e, entries, kind, piece)
+               for e, t in parts.items()}
+        return {d: [got[e][d] if e in got else self.move(got[d][d], e, d,
+                                                         kind)
+                    for e in entries] for d in self.computing(entries)}
+
+    def _counted(self, t: torch.Tensor, moves) -> torch.Tensor:
+        """``t``, whose gradient under autograd counts the way back of
+        ``moves`` ``(kind, src, dst, nbytes)``, made forward from dst to
+        src: moves a walk counted but did not make."""
+        if not moves or not (t.requires_grad and torch.is_grad_enabled()):
+            return t
+        return _Counted.apply(t, self, tuple(
+            (BACKWARD.get(k, k), s, d, n) for k, s, d, n in moves))
 
     @staticmethod
     def count(kind: str, nbytes: int, src: int, dst: int) -> None:
         """Report a move of ``nbytes`` from entry ``src`` to ``dst`` (none
-        when they are one entry). ``move`` reports through it; a dry run
-        reports through it alone the moves that only other devices'
-        work would consume."""
+        when they are one entry). ``move`` and ``spread`` report through
+        it."""
         if kind not in COLLECTIVES:
             raise ValueError(kind)
         if src != dst:
@@ -165,9 +250,52 @@ class Mesh:
         return out
 
 
+# the collective that carries a move's gradient back
+BACKWARD = {"all-gather": "reduce-scatter", "reduce-scatter": "all-gather"}
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class _Move(torch.autograd.Function):
+    """A move between two entries under autograd: its gradient moves back,
+    counted as :data:`BACKWARD` of its kind."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, src, dst, kind):
+        ctx.mesh, ctx.src, ctx.dst, ctx.kind = mesh, src, dst, kind
+        ctx.device = t.device
+        out = t.to(mesh.devices[dst])
+        return out.view_as(out) if out is t else out
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.mesh.count(BACKWARD.get(ctx.kind, ctx.kind), _nbytes(g),
+                       ctx.dst, ctx.src)
+        return g.to(ctx.device), None, None, None, None
+
+
+class _Counted(torch.autograd.Function):
+    """The identity, whose backward counts ``moves`` of its gradient."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, moves):
+        ctx.mesh, ctx.moves = mesh, moves
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        for kind, src, dst, nbytes in ctx.moves:
+            ctx.mesh.count(kind, nbytes, src, dst)
+        return g, None, None
+
+
 @dataclass(frozen=True)
 class Row:
-    """One DP row: its index, its entries (the first computes), that
+    """One DP row: its index, its entries in "model" order (the first is
+    the row's home: it reads the row's inputs, runs the sublayers the
+    rules keep whole and merges the sequence-parallel decode), that
     entry's device, and the rows [start, start + size) of the batch."""
     index: int
     entries: tuple
@@ -221,6 +349,15 @@ def block_box(shape, spec, mesh: Mesh, entry: int) -> tuple:
         step = size // n
         box.append((idx * step, (idx + 1) * step))
     return tuple(box)
+
+
+def model_box(shape, spec, mesh: Mesh, entry: int) -> tuple:
+    """``entry``'s box of a leaf for its tensor-parallel slice: the part
+    of :func:`block_box` that "model" gives it, whole over every other
+    axis (what the entry reads, gathered over "data")."""
+    only = tuple("model" if "model" in _names(item) else None
+                 for item in spec)
+    return block_box(shape, only, mesh, entry)
 
 
 def shard_shape(shape, spec, mesh: Mesh) -> tuple:

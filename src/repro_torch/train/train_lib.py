@@ -20,13 +20,14 @@ the reference, an explicit-DP feature of
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 from functools import cached_property
 
 import torch
 
 from ..models import sharding as shd
-from ..models.model import (LM, ShardedLM, _Grad, _mesh_loss, _put,
+from ..models.model import (LM, ShardedLM, _mesh_loss, _put,
                             grad_buffers, init_params, params_from_reference,
                             reference_leaf, reference_params, train_step_fn)
 from ..util import resolve_device
@@ -272,8 +273,9 @@ def _mesh_step(model_cfg, train_cfg: TrainConfig, mesh, rules):
     microbatches (divided by their count when more than one), AdamW on
     the blocks, the global norm summed leaf by leaf in the reference's
     order over the distinct blocks. ``step.dry_row(state, batch)`` runs
-    what one device does: the first row, and the optimizer on that row's
-    first entry (the dry run's per-device walk)."""
+    what one device does: the first row's first entry (its slice of each
+    split sublayer, the row's whole ones), and the optimizer on that
+    entry's blocks (the dry run's per-device walk)."""
     nm = train_cfg.n_microbatches
 
     def run(state: TrainState, batch: dict, dry: bool = False):
@@ -288,14 +290,15 @@ def _mesh_step(model_cfg, train_cfg: TrainConfig, mesh, rules):
         first = mesh.rows(shd._names(rules["batch"]), mb)[0]
         grads = grad_buffers(model, ospecs, (first.home,) if dry else None)
         r = {**rules, "_rows": (first,)} if dry else rules
-        g = _Grad(grads, (first.home,) if dry else None)
         lsum = asum = None
-        for i in range(nm):
-            loss, metrics = _mesh_loss(model, batch, r, g, i * mb, mb)
-            loss.backward()
-            loss, aux = loss.detach(), metrics["aux"].detach()
-            lsum = loss if lsum is None else lsum + loss
-            asum = aux if asum is None else asum + aux
+        with mesh.walk((first.home,)) if dry else contextlib.nullcontext():
+            for i in range(nm):
+                loss, metrics = _mesh_loss(model, batch, r, grads, i * mb,
+                                           mb)
+                loss.backward()
+                loss, aux = loss.detach(), metrics["aux"].detach()
+                lsum = loss if lsum is None else lsum + loss
+                asum = aux if asum is None else asum + aux
         if nm > 1:
             with torch.no_grad():
                 for buf in grads.values():

@@ -164,7 +164,9 @@ def test_lower_cell_smoke_cell_on_a_meta_mesh(arch, kind):
     """A smoke-sized cell on a (2, 2) ``meta`` mesh: finite terms, the
     FSDP gathers seen as all-gather (and, training, the gradients as
     reduce-scatter), useful_ratio <= 1 for training, and the argument
-    bytes a quarter-ish of the state."""
+    bytes a quarter-ish of the state. yi-9b's and olmoe's training step:
+    one entry walks a quarter of the FLOPs of the same cell on a (1, 1)
+    mesh (tensor-parallel over "model", data-parallel over "data")."""
     mesh = Mesh((2, 2), ("data", "model"), "meta")
     shape = dict(name=kind, kind=kind, seq_len=32 if kind != "decode" else 64,
                  global_batch=8)
@@ -178,6 +180,12 @@ def test_lower_cell_smoke_cell_on_a_meta_mesh(arch, kind):
     if kind == "train":
         assert r.useful_ratio <= 1.0
         assert r.collectives["reduce-scatter"] > 0
+    if arch in ("yi-9b", "olmoe-1b-7b") and kind == "train":
+        # one entry walks a quarter of the (1, 1) mesh's whole step
+        one = Mesh((1, 1), ("data", "model"), "meta")
+        _, whole = dryrun.lower_cell(arch, shape, one, "1x1",
+                                     cfg=get_smoke_config(arch))
+        assert r.hlo_flops * 4 == whole.hlo_flops
 
 
 def test_dryrun_cli_one_cell(tmp_path, capsys):

@@ -2,13 +2,15 @@
 ``init_train_state(mesh=)``, ``batch_sharding``) and the elastic restore
 (``CheckpointManager.restore(sharding_tree=)``), on ``["cpu"] * 4``.
 
-The reference's sharded step does not run on jax 0.9.0 (its embedding
-gather raises ``DuplicateSpecError`` at one microbatch, its microbatch
-scan "0th dimension of all xs should be replicated" at two). GSPMD
-promises that a sharded program computes what the unsharded one does, so
-one sharded step of the port is held against the port's unsharded step
+One sharded step of the port is held against the port's unsharded step
 and against the reference's unsharded jitted step, on the same weights
-(the reference's tree, drawn with numpy) and the same batch.
+(the reference's tree, drawn with numpy) and the same batch. The
+reference's own sharded step fails on a mesh from ``jax.make_mesh``,
+whose axes are ``Explicit`` in this jax (its embedding gather raises
+``DuplicateSpecError`` at one microbatch, its microbatch scan "0th
+dimension of all xs should be replicated" at two); on a mesh with
+``Auto`` axes it runs, and ``test_torch_tensor_parallel.py`` holds this
+file's (2, 2) steps to it by the same bars.
 
 Bars, float32, the card check's: loss within 1e-4; each gradient leaf
 within 1e-3 of its max abs (the first step's mu is (1 - b1)·clip·g, so
