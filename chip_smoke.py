@@ -191,8 +191,9 @@ Phases, any failure exits non-zero:
 18. mesh    — the LM stack over a mesh of entries on the one card
               (``repro_torch.models.sharding``), tensor-parallel over
               "model": each entry of a DP row computes its heads, MLP
-              columns, experts and vocab columns of every layer and the
-              row all-reduces the partials. The sharded training
+              columns, experts, vocab columns, RG-LRU channels and
+              mLSTM / sLSTM heads of every layer and the row all-reduces
+              the partials. The sharded training
               step (FSDP: each entry gathers its box of a layer at a
               time; fp32 gradient buffers, AdamW on the blocks) for
               yi-9b and olmoe-1b-7b at
@@ -217,7 +218,18 @@ Phases, any failure exits non-zero:
               step against a prefill over the same P + 1 tokens).
               yi-9b (2 layers, fp32) on (2, 2): prefill of 4 x 1,100
               tokens and 8 decode steps, logits within 2e-4 of the
-              unsharded card's at every step. The saved state restored
+              unsharded card's at every step. recurrentgemma-2b (3
+              layers) and xlstm-1.3b (8) at full width, fp32, on (2, 2)
+              and (1, 4), the recurrent mixers (and recurrentgemma's 10
+              heads, 3/3/2/2 on (1, 4)) tensor-parallel over "model":
+              one train_step_fn of 4 x 16 tokens within [train]'s bars
+              of the unsharded card's, a prefill of 2 x 1,100 tokens and
+              8 decode steps within 2e-4 max abs logit or, where larger,
+              MESH_ULP_TOL times the unsharded model's own logit movement
+              under a 1e-7 relative weight perturbation, every replica of
+              each recurrent state equal bit for bit; each entry's walked
+              forward FLOPs logged beside the unsharded walk. The saved
+              state restored
               onto (4, 1) and (1, 1), every leaf bit for bit. yi-9b at
               full width, 8 layers, bf16 under fp32 masters on (2, 2),
               batch 8 x 2,048 in 2 microbatches: a warm step and 3 timed
@@ -368,6 +380,24 @@ MESH_DECODE_TOL = 2e-4
 # DP rows: 2 x 16 tokens in 2 microbatches)
 MESH_TRAIN_CHECKS = (("yi-9b", 2, 4, 16, 2), ("olmoe-1b-7b", 2, 4, 16, 2))
 MESH_RESTORE = ((4, 1), (1, 1))   # [mesh]: meshes the (2, 2) state resumes on
+# [mesh] the recurrent mixers tensor-parallel over "model", fp32 at full
+# width: arch, layers (one pattern repeat each: recurrentgemma's rglru,
+# rglru, local_attn; xlstm's 7 mLSTM and 1 sLSTM), on each of
+# MESH_RECURRENT_SHAPES against the unsharded card: one train_step_fn of
+# MESH_RECURRENT_TRAIN (batch, sequence) within [train]'s bars, a
+# prefill and decode steps of MESH_RECURRENT_DECODE (batch, prompt,
+# steps) within MESH_DECODE_TOL
+MESH_RECURRENT = (("recurrentgemma-2b", 3), ("xlstm-1.3b", 8))
+MESH_RECURRENT_SHAPES = ((2, 2), (1, 4))
+MESH_RECURRENT_TRAIN = (4, 16)
+MESH_RECURRENT_DECODE = (2, 1_100, 8)
+# ... and where the unsharded model's own logits move more than
+# MESH_DECODE_TOL when each block weight is scaled by (1 + MESH_ULP_REL ·
+# N(0, 1)) — about an fp32 ulp, the size of what a split's reordered
+# sums change (xlstm-1.3b at full width: 1.4e-4 to 5.7e-4 over a prefill
+# and 3 steps) — within MESH_ULP_TOL times that movement
+MESH_ULP_REL = 1e-7
+MESH_ULP_TOL = 4.0
 
 
 def _dataset(name: str) -> dict:
@@ -3651,6 +3681,158 @@ def _mesh_train_checks(torch, dev, log):
     return out, keep
 
 
+def _entry_walks(torch, cfg, shape, B, S):
+    """forward's walked FLOPs at B x S on ``meta``: unsharded, and each
+    entry's of the first DP row of a ``shape`` mesh (``Mesh.walk``)."""
+    from repro_torch.launch.hlo_walk import walk
+    from repro_torch.models import LM, forward
+    from repro_torch.models.model import ShardedLM
+    from repro_torch.models.sharding import Mesh, make_rules
+    lm = LM(cfg, "meta")
+    x = torch.zeros((B, S), dtype=torch.int64, device="meta")
+    whole = walk(lambda: forward(lm, x)).flops
+    mesh = Mesh(shape, ("data", "model"), "meta")
+    rules = make_rules(cfg, mesh)
+    sharded = ShardedLM.place(lm, mesh, rules)
+    row = mesh.rows(("data",), B)[0]
+    per = []
+    for e in row.entries:
+        with mesh.walk((e,)):
+            per.append(walk(lambda: forward(sharded, x, {
+                **rules, "_rows": (row,)})).flops)
+    return whole, per
+
+
+def _ulp_spread(torch, model, serve, want):
+    """The largest max abs logit movement over ``serve(model)``'s steps
+    when every block weight is scaled by (1 + MESH_ULP_REL · N(0, 1)),
+    from ``want`` (its logits unperturbed); the weights are put back."""
+    blocks = [p for n, p in model.named_parameters()
+              if n.startswith("layers.")]
+    saved = [p.detach().clone() for p in blocks]
+    g = torch.Generator(device=blocks[0].device).manual_seed(43)
+    with torch.no_grad():
+        for p in blocks:
+            p.mul_(1 + MESH_ULP_REL * torch.randn(
+                p.shape, generator=g, device=p.device, dtype=p.dtype))
+        got = serve(model)
+        for p, w in zip(blocks, saved):
+            p.copy_(w)
+    return max(float((a - b).abs().max()) for a, b in zip(want, got))
+
+
+def _replicas_equal(torch, cache):
+    """Whether every replica of each recurrent state leaf of a mesh cache
+    holds the same bits as the others."""
+    for layer in cache:
+        if isinstance(layer, dict) and "k" in layer:
+            continue
+        for sh in (layer.values() if isinstance(layer, dict) else layer):
+            for holders in sh.holders.values():
+                if not all(torch.equal(sh.blocks[e], sh.blocks[holders[0]])
+                           for e in holders[1:]):
+                    return False
+    return True
+
+
+def _mesh_recurrent_checks(torch, dev, log):
+    """MESH_RECURRENT in fp32 at full width on each of
+    MESH_RECURRENT_SHAPES' meshes of ``dev``: the recurrent mixers (and
+    recurrentgemma's 10 heads, unevenly on (1, 4)) tensor-parallel over
+    "model", against the unsharded card: one train_step_fn (loss and
+    every gradient leaf by [train]'s bars), a prefill and decode steps
+    (logits within MESH_DECODE_TOL at every step, or within MESH_ULP_TOL
+    times the unsharded model's own movement under an ulp-sized weight
+    perturbation where that is larger; every replica of each recurrent
+    state equal bit for bit after them); each entry's walked forward
+    FLOPs beside the unsharded walk."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import (decode_step, init_cache, init_params,
+                                    prefill, train_step_fn)
+    from repro_torch.models.model import ShardedLM
+    from repro_torch.models.sharding import Mesh, make_rules
+    Bt, St = MESH_RECURRENT_TRAIN
+    Bd, P, steps = MESH_RECURRENT_DECODE
+    out = {}
+    for i, (arch, n) in enumerate(MESH_RECURRENT):
+        cfg = get_config(arch).scaled(n_layers=n, dtype="float32")
+        t0 = time.perf_counter()
+        model = init_params(cfg, torch.Generator(device=dev).manual_seed(
+            40 + i), dev)
+        rng = np.random.default_rng(41 + i)
+        batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+            Bt, St)).astype(np.int32)).to(dev) for k in ("inputs", "targets")}
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+            Bd, P + steps))).to(dev)
+
+        def serve(m, r):
+            cache = init_cache(cfg, Bd, P + steps, dev, rules=r)
+            lg, cache = prefill(m, toks[:, :P], cache, r)
+            lgs = [lg]
+            for s in range(P, P + steps):
+                lg, cache = decode_step(m, cache, toks[:, s:s + 1], s, r)
+                lgs.append(lg)
+            return lgs, cache
+
+        loss0, _, grads0 = train_step_fn(model, batch)
+        want, _ = serve(model, None)
+        spread = _ulp_spread(torch, model, lambda m: serve(m, None)[0], want)
+        bar = max(MESH_DECODE_TOL, MESH_ULP_TOL * spread)
+        unsharded_s = time.perf_counter() - t0
+        for shape in MESH_RECURRENT_SHAPES:
+            t1 = time.perf_counter()
+            mesh = Mesh(shape, ("data", "model"), [dev] * 4)
+            rules = make_rules(cfg, mesh)
+            sharded = ShardedLM.place(model, mesh, rules)
+            loss, _, grads = train_step_fn(sharded, batch, rules)
+            loss_err = abs(float(loss) - float(loss0))
+            grad_err = 0.0
+            for name, g in grads.items():
+                scale = float(grads0[name].abs().max())
+                if scale > 0:
+                    grad_err = max(grad_err, float((g.full(dev) - grads0[
+                        name]).abs().max()) / scale)
+            del grads
+            got, cache = serve(sharded, rules)
+            errs = [float((a - b).abs().max()) for a, b in zip(want, got)]
+            same = _replicas_equal(torch, cache)
+            del cache, sharded
+            run_s = time.perf_counter() - t1
+            whole, per = _entry_walks(torch, cfg, shape, Bt, St)
+            row = {"loss_err": loss_err, "grad_rel_err": grad_err,
+                   "max_abs_err": max(errs), "errs": errs,
+                   "ulp_spread": spread, "decode_bar": bar,
+                   "replicas_equal": same, "walk_whole": whole,
+                   "walk_entries": per, "s": run_s,
+                   "walk_s": time.perf_counter() - t1 - run_s}
+            if (loss_err > TRAIN_LOSS_TOL or grad_err > TRAIN_GRAD_TOL
+                    or max(errs) > bar or not same or max(per) >= whole):
+                raise AssertionError(f"[mesh] {arch} on {shape}: sharded != "
+                                     f"unsharded: {row}")
+            log(f"[mesh] {arch} full width ({n} layers) fp32 on a {shape} "
+                f"mesh of {dev} (recurrent mixers and attention "
+                f"tensor-parallel over 'model'): train_step_fn {Bt} x {St} "
+                f"== the unsharded card's: loss diff {loss_err:.2e} <= "
+                f"{TRAIN_LOSS_TOL}, max grad leaf diff {grad_err:.2e} x its "
+                f"max abs <= {TRAIN_GRAD_TOL}; prefill {Bd} x {P} + {steps} "
+                f"decode steps within {max(errs):.2e} max abs logit <= "
+                f"{bar:.2e} (the larger of {MESH_DECODE_TOL} and "
+                f"{MESH_ULP_TOL} x the unsharded model's own {spread:.2e} "
+                f"under a {MESH_ULP_REL} relative weight perturbation); "
+                f"every recurrent-state replica equal bit for bit; "
+                f"{run_s:.1f} s")
+            for j, f in enumerate(per):
+                log(f"[mesh] {arch} on {shape}: entry {j} of the first row "
+                    f"walks {f:.6g} forward FLOPs at {Bt} x {St} "
+                    f"(unsharded {whole:.6g}, x{whole / f:.3f})")
+            out[f"{arch}/{shape[0]}x{shape[1]}"] = row
+            torch.cuda.empty_cache()
+        out[f"{arch}/unsharded_s"] = unsharded_s
+        del model, grads0
+        torch.cuda.empty_cache()
+    return out
+
+
 def _mesh_save(state):
     """Start saving ``state`` (a mesh state): the host copy now, the
     files by the manager's writer thread while the card serves. Returns
@@ -3846,12 +4028,15 @@ def phase_mesh(torch, ops, dev, smi, lm, train, log):
         saved = _mesh_save(state)
         serve = _mesh_serve(torch, dev, smi, lm, log)
         decode = _mesh_decode_check(torch, dev, log)
+        t0 = time.perf_counter()
+        recurrent = _mesh_recurrent_checks(torch, dev, log)
+        recurrent["s"] = time.perf_counter() - t0
         restore = _mesh_restore(torch, dev, state, saved, log)
         del state
         torch.cuda.empty_cache()
         run = _mesh_train_full(torch, dev, smi, train, log)
         return {"serve": serve, "decode": decode, "checks": checks,
-                "restore": restore, "run": run}
+                "recurrent": recurrent, "restore": restore, "run": run}
 
     out, launches = _window(torch, ops, paths)
     if any(launches.values()):

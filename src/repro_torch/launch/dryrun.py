@@ -16,13 +16,16 @@ the first entry of the first DP row — runs under the counting walker
                    a cache placed by ``cache_spec_tree`` (its part of the
                    sequence-parallel attention)
 
-The entry computes its tensor-parallel slice of every split sublayer
-(heads, MLP hidden, experts, vocab) and the sublayers the rules keep
-whole over "model" (the recurrent mixers, attention whose heads "model"
-does not divide); the moves the row's other entries make to it or take
-from it (the all-reduce of the partials, the gradients' reduce-scatter)
-are counted, not made, inside ``Mesh.walk``. Every entry has the same
-shapes, so the figures are per device, as the reference's. Per-device
+The entry computes its tensor-parallel slice of every sublayer (heads,
+MLP hidden, experts, vocab, the RG-LRU's channels, the mLSTM's and
+sLSTM's heads or value columns); the moves the row's other entries make
+to it or take from it (the all-reduce of the partials, the all-gathers
+of k and v columns, of the RG-LRU's conv output and of the sLSTM's h,
+the gradients' reduce-scatter) are counted, not made, inside
+``Mesh.walk``. The entries' shares are equal, or, where "model" does not
+divide the heads, the first entries' hold one head more: the first
+entry is the busiest, so the figures are per device, as the
+reference's. Per-device
 memory = the placed blocks' bytes on the busiest entry of the row
 ("argument") plus the walk's peak of live op outputs ("temp");
 ``row_entries`` in the JSON is the row's size. The roofline terms use the H100's data-sheet

@@ -13,10 +13,11 @@ due, and no library attention is used.
 
 Over a mesh, the sublayers run per entry of a DP row (``model.py``):
 :func:`mlp_block` given an entry's hidden columns returns its partial
-output; :func:`attention_entries` and :func:`moe_entries` take every
-computing entry's input and weights at once, since their entries trade
-values mid-way (q's heads for the sequence-parallel decode, the fresh
-k/v for the cache, the router's logits). A cache whose leaves are
+output; :func:`attention_entries` (by heads, unevenly where "model" does
+not divide them) and :func:`moe_entries` take every computing entry's
+input and weights at once, since their entries trade values mid-way
+(q's heads for the sequence-parallel decode, the fresh k/v for the
+cache, the router's logits). A cache whose leaves are
 ``Sharded`` takes one of two routes: single-token decode of a
 global-attention layer runs sequence-parallel
 (:func:`seq_sharded_decode_attention`), anything else gathers each
@@ -31,7 +32,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .sharding import dp_axes
+from . import sharding as shd
+from .sharding import dp_axes, split_units
 
 NEG_INF = -1e30
 
@@ -274,13 +276,13 @@ def _attend_sharded_cache(qkv, cache, positions, cfg, row, heads, causal,
     entry, the row's region of its kv heads gathered onto it (a copy),
     the plain route there; then each distinct region written back to the
     row's entries' blocks by its first entry (its new slots among it),
-    pos by the row's home."""
+    pos by the first."""
     Smax, hd = cache["k"].shape[1], cache["k"].shape[3]
     outs, copies = {}, {}
     for e, (q, k, v) in qkv.items():
-        lo = heads[e][1]
-        region = ((row.start, row.start + row.size), (0, Smax),
-                  (lo, lo + k.shape[2]), (0, hd))
+        lo, hi = heads[e][2:4]
+        region = ((row.start, row.start + row.size), (0, Smax), (lo, hi),
+                  (0, hd))
         plain = {n: cache[n].read(e, region, prefer=row.entries)
                  for n in ("k", "v")}
         plain["pos"] = cache["pos"].read(e, prefer=row.entries)
@@ -288,18 +290,27 @@ def _attend_sharded_cache(qkv, cache, positions, cfg, row, heads, causal,
         plain = {n: t.clone() if t._base is not None else t
                  for n, t in plain.items()}
         outs[e] = _attend_cache(q, k, v, plain, positions[e], cfg, causal,
-                                window)
+                                window, _kv_index(cfg, heads[e]))
         copies.setdefault(region, (e, plain))
     for region, (e, plain) in copies.items():
         for n in ("k", "v"):
             cache[n].write(plain[n], e, region, entries=row.entries)
-    e, plain = next(iter(copies.values()))          # the home's
+    e, plain = next(iter(copies.values()))
     cache["pos"].write(plain["pos"], e, entries=row.entries)
     return outs
 
 
-def _attend_cache(q, k, v, cache, positions, cfg, causal, window):
-    """Attention over a plain cache dict, updated in place."""
+def _per_q(t, idx):
+    """k or v with their kv heads taken per q head (``idx``), or as they
+    are (None)."""
+    return t if idx is None else t[:, :, idx]
+
+
+def _attend_cache(q, k, v, cache, positions, cfg, causal, window,
+                  kv_index=None):
+    """Attention over a plain cache dict, updated in place. ``kv_index``:
+    the kv head (of those given) each q head reads, where the grouped
+    form cannot say it (:func:`_kv_index`)."""
     ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
     S, Smax = q.shape[1], ck.shape[1]
     if S == 1:
@@ -307,7 +318,8 @@ def _attend_cache(q, k, v, cache, positions, cfg, causal, window):
         # written IS the current position; a ring overwrite only evicts
         # pos - Smax, which the window predicate masks anyway).
         _write(ck, cv, cpos, k, v, positions)
-        return flash_attention(q, rope(ck, cpos, cfg.rope_theta), cv,
+        return flash_attention(q, _per_q(rope(ck, cpos, cfg.rope_theta),
+                                         kv_index), _per_q(cv, kv_index),
                                q_pos=positions, k_pos=cpos, causal=causal,
                                window=window, chunk=cfg.attn_chunk)
     # Chunked prefill: attend BEFORE writing (a ring write of a
@@ -316,7 +328,8 @@ def _attend_cache(q, k, v, cache, positions, cfg, causal, window):
     # are masked by the window, empty slots by pos == -1.
     pos_all = torch.cat([cpos, positions])
     k_roped = rope(torch.cat([ck, k], dim=1), pos_all, cfg.rope_theta)
-    out = flash_attention(q, k_roped, torch.cat([cv, v], dim=1),
+    out = flash_attention(q, _per_q(k_roped, kv_index),
+                          _per_q(torch.cat([cv, v], dim=1), kv_index),
                           q_pos=positions, k_pos=pos_all, causal=causal,
                           window=window, chunk=cfg.attn_chunk)
     # Only the last Smax positions are written, so no slot is written
@@ -330,19 +343,18 @@ def _attend_cache(q, k, v, cache, positions, cfg, causal, window):
 
 
 def _qkv(x, p, cfg, positions):
-    """The pre-norm projections: q (roped), k and v (unroped), their head
-    counts read off the weights (an entry's slice holds fewer)."""
+    """The pre-norm projections: q (B, S, n, hd) roped, its head count
+    read off the weights (an entry's share holds fewer); k and v
+    unroped, (B, S, w) over the columns of the weights given."""
     B, S, _ = x.shape
-    hd = cfg.hd
     h = norm(x, p["norm"], cfg.norm_type)
-    q = (h @ p["wq"]).reshape(B, S, -1, hd)
-    k = (h @ p["wk"]).reshape(B, S, -1, hd)
-    v = (h @ p["wv"]).reshape(B, S, -1, hd)
-    return rope(q, positions, cfg.rope_theta), k, v
+    q = (h @ p["wq"]).reshape(B, S, -1, cfg.hd)
+    return rope(q, positions, cfg.rope_theta), h @ p["wk"], h @ p["wv"]
 
 
-def _self_attend(q, k, v, positions, cfg, causal, window):
-    return flash_attention(q, rope(k, positions, cfg.rope_theta), v,
+def _self_attend(q, k, v, positions, cfg, causal, window, kv_index=None):
+    return flash_attention(q, _per_q(rope(k, positions, cfg.rope_theta),
+                                     kv_index), _per_q(v, kv_index),
                            q_pos=positions, k_pos=positions, causal=causal,
                            window=window, chunk=cfg.attn_chunk,
                            causal_skip=cfg.causal_skip)
@@ -364,6 +376,7 @@ def attention_block(x, p, cfg, *, positions, causal: bool,
     """
     B, S, _ = x.shape
     q, k, v = _qkv(x, p, cfg, positions)
+    k, v = (t.reshape(B, S, -1, cfg.hd) for t in (k, v))
     if cache is None:
         out = _self_attend(q, k, v, positions, cfg, causal, window)
     else:
@@ -371,58 +384,132 @@ def attention_block(x, p, cfg, *, positions, causal: bool,
     return out.reshape(B, S, -1) @ p["wo_attn"], cache
 
 
-def entry_heads(cfg, row, n_local: int) -> dict:
-    """Each entry of ``row``'s first q head and first kv head when each
-    takes ``n_local`` q heads in "model" order (all of them: the row's
-    home alone): entry j's heads start at j·n_local, and under GQA q head
-    h reads kv head h // (H / Kh)."""
+def entry_heads(cfg, row) -> dict:
+    """Each entry of ``row``'s attention share: (first q head, end q
+    head, first kv head, end kv head, first kv column, end kv column).
+    The q heads split in "model" order by ``sharding.split_units``
+    (evenly where "model" divides them, else the first H mod m entries
+    take one more; an entry may take none); under GQA q head h reads kv
+    head h // (H / Kh), and an entry reads the kv heads its q heads
+    read. The entries that read a kv head split its hd columns of the
+    k and v projections (``split_units``, in order), so each computes
+    the columns [first, end) of them and gathers the rest of its kv
+    heads from the others (:func:`_kv_heads`)."""
+    G, hd = cfg.n_heads // cfg.n_kv_heads, cfg.hd
+    q = dict(zip(row.entries, split_units(cfg.n_heads, len(row.entries))))
+    kv = {e: (a // G, (b - 1) // G + 1) if b > a else (0, 0)
+          for e, (a, b) in q.items()}
+    cols = {}
+    for j in range(cfg.n_kv_heads):
+        readers = [e for e in row.entries if kv[e][0] <= j < kv[e][1]]
+        for e, (c0, c1) in zip(readers, split_units(hd, len(readers))):
+            lo, hi = cols.get(e, (j * hd + c0, j * hd + c1))
+            cols[e] = (lo, j * hd + c1)
+    return {e: (*q[e], *kv[e], *cols.get(e, (0, 0))) for e in row.entries}
+
+
+def _kv_heads(mesh, row, heads, own, hd):
+    """Each computing entry's kv heads of k (or v) (B, S, n, hd), from
+    ``own`` (entry -> (B, S, w), the columns it computed): its own and
+    the rest moved from the entries that computed them (an all-gather
+    among the readers of a kv head; inside ``Mesh.walk``, zeros stand
+    in for a piece not computed)."""
+    out = {}
+    for e, t in own.items():
+        lo, hi = heads[e][2] * hd, heads[e][3] * hd
+        pieces = []
+        for o in row.entries:
+            o0, o1 = heads[o][4:]
+            x0, x1 = max(lo, o0), min(hi, o1)
+            if x0 >= x1:
+                continue
+            if o in own:
+                piece = own[o][..., x0 - o0:x1 - o0]
+            else:
+                piece = shd.stand_in_like(t, t.shape[:-1] + (x1 - x0,))
+            pieces.append(piece if o == e else mesh.move(piece, o, e,
+                                                         "all-gather"))
+        k = pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=-1)
+        out[e] = k.reshape(*t.shape[:2], -1, hd)
+    return out
+
+
+def _kv_index(cfg, share):
+    """The kv head (of the share's) each of its q heads reads, where its
+    q heads do not read its kv heads in equal runs (say heads 4-7 of
+    qwen2-vl's groups of 7: three read kv head 0, one kv head 1), so
+    the grouped einsum cannot; None where it can."""
+    a, b, lo, hi = share[:4]
     G = cfg.n_heads // cfg.n_kv_heads
-    return {e: (j * n_local, j * n_local // G)
-            for j, e in enumerate(row.entries)}
+    runs = {sum(h // G == kv for h in range(a, b)) for kv in range(lo, hi)}
+    return None if len(runs) == 1 else [h // G - lo for h in range(a, b)]
+
+
+def _gather_heads(mesh, pieces: dict, counts: dict, home: int):
+    """The heads of ``counts``' entries (entry -> its head count, in head
+    order) from ``pieces`` (entry -> (B, S, n, Dh), those that computed)
+    on ``home``, concatenated on the head axis; inside ``Mesh.walk``,
+    zeros of an entry's count stand in for its piece."""
+    def stand_in(e, own):
+        return shd.stand_in_like(own, own.shape[:2] + (counts[e],)
+                                 + own.shape[3:])
+    return torch.cat(mesh.gather(pieces, list(counts), home, "all-gather",
+                                 stand_in), dim=2)
 
 
 def attention_entries(xs, ps, cfg, rules, *, row, positions, causal: bool,
                       window: int | None, cache=None):
-    """Attention over a mesh row, tensor-parallel: ``xs`` and ``ps`` map
-    each computing entry to its input (B_r, S, d) and weights on its
-    device — its q heads' columns of ``wq`` and rows of ``wo_attn``, its
-    kv heads (or the one its q heads read) of ``wk``/``wv`` — or the
-    row's home alone to the whole weights. Returns each entry's partial
-    output (its heads through its rows of ``wo_attn``), which the row
-    all-reduces.
+    """Attention over a mesh row, tensor-parallel by heads
+    (:func:`entry_heads`): ``xs`` and ``ps`` map each computing entry
+    that has q heads to its input (B_r, S, d) and weights on its device
+    — its q heads' columns of ``wq`` and rows of ``wo_attn``, its
+    columns of ``wk``/``wv`` (the rest of its kv heads' k and v are
+    gathered from the entries that computed them). Returns each one's
+    partial output (its heads through its rows of ``wo_attn``), which
+    the row all-reduces (an entry without heads adds nothing).
 
     With a ``Sharded`` cache: the sequence-parallel decode takes every q
     head (the reference's ``shard_map`` takes q replicated), so q's heads
-    and the fresh k/v are all-gathered onto the home, the merged output
-    goes back to each entry for its heads; otherwise
-    :func:`_attend_sharded_cache`. ``positions``: on the home's device.
+    and each kv head (from the first entry that computed it) are
+    all-gathered onto the home, the merged output goes back to each
+    entry for its heads; otherwise :func:`_attend_sharded_cache`.
+    ``positions``: on the home's device.
     """
     mesh = rules["_mesh"]
     home = row.home
     pos = {e: positions.to(mesh.devices[e]) for e in xs}
     qkv = {e: _qkv(xs[e], ps[e], cfg, pos[e]) for e in xs}
-    n_local = next(iter(qkv.values()))[0].shape[2]
-    heads = entry_heads(cfg, row, n_local)
-    B, S = xs[home].shape[:2]
+    heads = entry_heads(cfg, row)
+    ks, vs = (_kv_heads(mesh, row, heads, {e: t[i] for e, t in qkv.items()},
+                        cfg.hd) for i in (1, 2))
+    qkv = {e: (t[0], ks[e], vs[e]) for e, t in qkv.items()}
+    B, S = next(iter(xs.values())).shape[:2]
     if cache is None:
-        outs = {e: _self_attend(q, k, v, pos[e], cfg, causal, window)
+        outs = {e: _self_attend(q, k, v, pos[e], cfg, causal, window,
+                                _kv_index(cfg, heads[e]))
                 for e, (q, k, v) in qkv.items()}
     elif seq_shardable(S, window, rules, cache["k"].shape[1]):
-        if n_local == cfg.n_heads:          # the whole block on the home
-            ents = kv_first = (home,)
-        else:
-            ents = row.entries
-            kv_first = [e for i, e in enumerate(ents) if i == 0
-                        or heads[e][1] != heads[ents[i - 1]][1]]
-        q = gather_pieces(mesh, {e: t[0] for e, t in qkv.items()},
-                          ents, home, 2)
-        k, v = (gather_pieces(mesh, {e: t[i] for e, t in qkv.items()},
-                              kv_first, home, 2) for i in (1, 2))
+        ents = [e for e in row.entries if heads[e][1] > heads[e][0]]
+        q = _gather_heads(mesh, {e: t[0] for e, t in qkv.items()},
+                          {e: heads[e][1] - heads[e][0] for e in ents}, home)
+        kv_from, done = {}, 0       # entry -> its kv heads [lo, hi) taken
+        for e in ents:
+            if heads[e][3] > done:
+                kv_from[e] = (done, heads[e][3])
+                done = heads[e][3]
+
+        def kv_piece(i):
+            return {e: t[i][:, :, kv_from[e][0] - heads[e][2]:
+                            kv_from[e][1] - heads[e][2]]
+                    for e, t in qkv.items() if e in kv_from}
+        k, v = (_gather_heads(mesh, kv_piece(i), {
+            e: hi - lo for e, (lo, hi) in kv_from.items()}, home)
+            for i in (1, 2))
         out = seq_sharded_decode_attention(q, cache, k, v, positions, cfg,
                                            mesh, causal=causal,
                                            rows=(row,))[0]
         outs = mesh.spread(out, home, ents, "all-reduce", lambda t, e: t[
-            :, :, heads[e][0]:heads[e][0] + n_local])
+            :, :, heads[e][0]:heads[e][1]])
     else:
         outs = _attend_sharded_cache(qkv, cache, pos, cfg, row, heads,
                                      causal, window)

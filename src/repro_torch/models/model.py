@@ -54,7 +54,8 @@ from . import sharding as shd
 from .config import ModelConfig
 from .layers import (attention_block, attention_entries, entry_heads,
                      gather_pieces, mlp_block, moe_block, moe_entries, norm)
-from .recurrent import mlstm_block, rglru_block, slstm_block
+from .recurrent import (mlstm_block, rglru_block, rglru_entries, slstm_block,
+                        slstm_entries)
 
 MOE_AUX_WEIGHT = 0.01
 Z_LOSS_WEIGHT = 1e-4
@@ -607,33 +608,81 @@ def _vocab_split(rules, row) -> bool:
     return rules.get("vocab") == "model" and len(row.entries) > 1
 
 
-def _attention_split(cfg, rules, row) -> bool:
-    """Whether attention splits by heads over the row: its heads on
-    "model" and each entry's q heads within whole kv groups (its kv
-    heads on "model" too) or within one (the kv head it reads, whole
-    over "model")."""
+def _shares(cfg, row, sub):
+    """Each entry of ``row``'s share of sublayer ``sub``: attention's
+    heads (``layers.entry_heads``), the RG-LRU's channels, the mLSTM's
+    and sLSTM's heads or a head's value columns
+    (``sharding.head_shares``); None for the MLP and MoE, whose
+    tensor-parallel boxes (``sharding.model_box``) are their shares."""
     m = len(row.entries)
-    if rules.get("heads") != "model":
-        return False
-    G = cfg.n_heads // cfg.n_kv_heads
-    return rules.get("kv") == "model" or G % (cfg.n_heads // m) == 0
+    if isinstance(sub, Attention):
+        return entry_heads(cfg, row)
+    if isinstance(sub, RGLRU):
+        units = shd.split_units(cfg.rnn_width or cfg.d_model, m)
+    elif isinstance(sub, (MLSTM, SLSTM)):
+        units = shd.head_shares(cfg.n_heads, cfg.hd, m)
+    else:
+        return None
+    return dict(zip(row.entries, units))
 
 
-def _sub_params(get, prefix, sub, e, split, row, cfg, rules):
-    """The sublayer's parameters on entry ``e``: its boxes when the
-    sublayer splits (for attention whose kv heads the rules replicate,
-    the one kv head its q heads read), else the whole of each."""
-    if not split:
-        return {n: get(prefix + n, e, whole=True) for n in sub.spec}
-    out = {}
-    for n, (shape, _dt, _init) in sub.spec.items():
-        region = None
-        if (n in ("wk", "wv") and isinstance(sub, Attention)
-                and rules.get("kv") != "model"):
-            kv = entry_heads(cfg, row, cfg.n_heads // len(row.entries))[e][1]
-            region = ((0, shape[0]), (kv * cfg.hd, (kv + 1) * cfg.hd))
-        out[n] = get(prefix + n, e, region=region)
-    return out
+def _cut(shape, **dims):
+    """A region of a leaf of ``shape``: (lo, hi) on the dims named
+    ``d0``, ``d1``, ..., the whole of every other."""
+    return tuple(dims.get(f"d{i}", (0, n)) for i, n in enumerate(shape))
+
+
+def _regions(sub, share, cfg) -> dict:
+    """The region of each of ``sub``'s leaves that an entry with
+    ``share`` reads (a leaf not named: its "model" box; the norm's is
+    whole). The rules keep some of these leaves whole over "model"
+    (attention's under undivided heads, ``wa``/``wx``, the recurrent
+    matrices, ``w_out``): the entry reads its region of them."""
+    hd = cfg.hd
+    if isinstance(sub, Attention):
+        q, kv = (share[0] * hd, share[1] * hd), share[4:]
+        return {"wq": dict(d1=q), "wo_attn": dict(d0=q), "wk": dict(d1=kv),
+                "wv": dict(d1=kv)}
+    if isinstance(sub, RGLRU):
+        ch = dict(d1=share)
+        return {"w_in": ch, "w_gate": ch, "conv_w": ch, "wa": ch, "wx": ch,
+                "ba": dict(d0=share), "bx": dict(d0=share),
+                "lam": dict(d0=share), "w_out": dict(d0=share)}
+    a, b, c0, c1 = share
+    heads = dict(d1=(a * hd, b * hd))
+    vc = (a * hd + c0, (b - 1) * hd + c1)        # its value columns
+    if isinstance(sub, MLSTM):
+        return {"wq": heads, "wk": heads, "wi_gate": dict(d1=(a, b)),
+                "wf_gate": dict(d1=(a, b)), "wv": dict(d1=vc),
+                "wo_gate": dict(d1=vc), "w_out": dict(d0=vc)}
+    return {**{w: dict(d1=vc) for w in ("wz", "wi", "wf", "wo_g")},
+            **{w: dict(d0=(a, b), d2=(c0, c1))
+               for w in ("rz", "ri", "rf", "ro")},
+            "w_out": dict(d0=vc)}
+
+
+def _sub_params(get, prefix, sub, e, shares, cfg):
+    """The sublayer's parameters on entry ``e``: its region of each
+    (:func:`_regions`) or its tensor-parallel box."""
+    regions = {} if shares is None else _regions(sub, shares[e], cfg)
+    return {n: get(prefix + n, e, region=_cut(shape, **regions[n])
+                   if n in regions else None)
+            for n, (shape, _dt, _init) in sub.spec.items()}
+
+
+def _state_regions(kind, cfg, row, share):
+    """The region of each leaf of a recurrent mixer's state (``kind``'s
+    cache entry) that an entry with ``share`` updates, in the row's
+    batch rows."""
+    rows = (row.start, row.start + row.size)
+    if kind == "rglru":
+        return {"conv": (rows, (0, cfg.conv_width - 1), share),
+                "h": (rows, share)}
+    a, b, c0, c1 = share
+    if kind == "mlstm":
+        return ((rows, (a, b), (0, cfg.hd), (c0, c1)),
+                (rows, (a, b), (0, cfg.hd)), (rows, (a, b)))
+    return ((rows, (a, b), (c0, c1)),) * 4
 
 
 def _embed(model, row, x_in, rules, get) -> dict:
@@ -663,39 +712,43 @@ def _embed(model, row, x_in, rules, get) -> dict:
 def _row_layer(model, layer, prefix, row, xs, positions, c, rules, get,
                st):
     """One layer of a row: ``xs`` the residual on each computing entry;
-    each sublayer split over them or, when the rules keep it whole, on
-    the home and all-gathered; the partials all-reduced into every
-    entry's residual. Returns (xs, the recurrent mixer's new state or
-    None)."""
+    each sublayer split over the row's entries (:func:`_shares`; an
+    entry without attention heads adds nothing), the partials
+    all-reduced into every entry's residual. ``c``: attention's cache
+    entry, or each computing entry's block of the recurrent state.
+    Returns (xs, each entry's block of the mixer's new state or None)."""
     cfg = model.cfg
     mesh = rules["_mesh"]
-    home = row.home
     nc = None
     for key, sub in layer.sublayers():
-        split = _split(cfg, rules, row, sub)
-        on = tuple(xs) if split else (home,)
-        ps = {e: _sub_params(get, prefix + key + ".", sub, e, split, row,
-                             cfg, rules) for e in on}
+        shares = _shares(cfg, row, sub)
+        on = {e: x for e, x in xs.items() if not isinstance(sub, Attention)
+              or shares[e][1] > shares[e][0]}
+        ps = {e: _sub_params(get, prefix + key + ".", sub, e, shares, cfg)
+              for e in on}
         if isinstance(sub, Attention):
-            parts = attention_entries({e: xs[e] for e in on}, ps, cfg,
-                                      rules, row=row, positions=positions,
+            # (a walk of an entry without heads skips it: it adds zeros)
+            parts = on and attention_entries(on, ps, cfg, rules, row=row,
+                                      positions=positions,
                                       causal=not cfg.is_encoder,
                                       window=sub.window, cache=c)
         elif isinstance(sub, MLP):
-            parts = {e: mlp_block(xs[e], ps[e], cfg) for e in on}
+            parts = {e: mlp_block(x, ps[e], cfg) for e, x in on.items()}
         elif isinstance(sub, MoE):
-            parts = moe_entries(xs, ps, cfg, mesh, row, st)
+            parts = moe_entries(on, ps, cfg, mesh, row, st)
+        elif isinstance(sub, RGLRU):
+            parts, nc = rglru_entries(on, ps, cfg, mesh, row, shares, c)
+        elif isinstance(sub, MLSTM):
+            out = {e: mlstm_block(x, ps[e], cfg, state=None if c is None
+                                  else c[e]) for e, x in on.items()}
+            parts = {e: y for e, (y, _) in out.items()}
+            nc = None if c is None else {e: s for e, (_, s) in out.items()}
         else:
-            y, nc = torch.func.functional_call(
-                sub, ps[home], (xs[home],),
-                {"positions": positions, "cache": c})
-            parts = {home: y}
-        if split:
-            ys = _all_reduce(mesh, row, parts)
-            xs = {e: xs[e] + ys[e] for e in xs}
-        else:
-            xs = mesh.spread(xs[home] + parts[home], home, row.entries,
-                             "all-gather")
+            parts, nc = slstm_entries(on, ps, cfg, mesh, row, shares, c)
+        ys = _all_reduce(mesh, row, {e: parts[e] if e in parts
+                                     else torch.zeros_like(x)
+                                     for e, x in xs.items()})
+        xs = {e: xs[e] + ys[e] for e in xs}
     return xs, nc
 
 
@@ -711,16 +764,18 @@ def _row_hidden(model, row, x_in, positions, cache, rules, get):
     for i, layer in enumerate(model.skeleton.layers):
         prefix = f"layers.{i}."
         c = None if cache is None else cache[i]
-        plain = None
+        states = None
         if c is not None and layer.kind not in ("attn", "local_attn"):
-            # recurrent states: the row's region, updated off the mesh
-            plain = _map_cache(lambda t: t.read(row.home, (
-                (row.start, row.start + row.size),)
-                + tuple((0, d) for d in t.shape[1:]),
-                prefer=row.entries), c)
+            # recurrent states: each entry's block of the row's, from its
+            # own replica (over "model" every entry holds the whole)
+            shares = _shares(cfg, row, getattr(layer, layer.mixer_key))
+            regions = {e: _state_regions(layer.kind, cfg, row, shares[e])
+                       for e in ents}
+            states = {e: _map_cache(lambda t, r, e=e: t.read(
+                e, r, prefer=row.entries), c, regions[e]) for e in ents}
 
         def run(*x, layer=layer, prefix=prefix,
-                c=c if plain is None else plain):
+                c=c if states is None else states):
             st = []
             ys, nc = _row_layer(model, layer, prefix, row, dict(zip(ents, x)),
                                 positions, c, rules_r, get, st)
@@ -732,21 +787,27 @@ def _row_hidden(model, row, x_in, positions, cache, rules, get):
             out = run(*xs.values())
         n = len(ents)
         xs, nc, st = dict(zip(ents, out[:n])), out[n], out[n + 1:]
-        if plain is not None:
-            _map_cache(lambda sh, t: sh.write(t, row.home, (
-                (row.start, row.start + row.size),)
-                + tuple((0, d) for d in sh.shape[1:]),
-                entries=row.entries), c, nc)
+        if states is not None:
+            _write_states(c, nc, regions, row)
         stats.append(tuple(st))
     fn = {e: get("final_norm", e, whole=True) for e in ents}
     return {e: norm(x, fn[e], cfg.norm_type) for e, x in xs.items()}, stats
 
 
-def _split(cfg, rules, row, sub) -> bool:
-    """Whether a sublayer splits over the row's entries."""
-    if isinstance(sub, (MLP, MoE)):
-        return True
-    return isinstance(sub, Attention) and _attention_split(cfg, rules, row)
+def _write_states(c, new, regions, row):
+    """Each entry's block of a recurrent state (``new``: entry -> its
+    leaves, at ``regions``) written into every replica the row holds;
+    a block two entries share (a head's n and m, which the entries
+    sharing the head compute alike) once, by the first."""
+    done = set()
+
+    def write(sh, t, r, e):
+        if (id(sh), r) not in done:
+            done.add((id(sh), r))
+            sh.write(t, e, r, entries=row.entries)
+    for e, leaves in new.items():
+        _map_cache(lambda sh, t, r, e=e: write(sh, t, r, e), c, leaves,
+                   regions[e])
 
 
 def _mesh_aux(row_stats, device, mesh, rows):
@@ -825,8 +886,10 @@ def forward(model, inputs, rules=None, *, positions=None, cache=None):
         res = _mesh_forward(model, inputs, rules, positions, cache)
         rows = [r for r, *_ in res]
         mesh = rules["_mesh"]
-        hidden = _mesh_gather_rows(mesh, rows,
-                                   [r[1][r[0].home] for r in res])
+        # a walk of another entry than the home returns that entry's
+        hidden = _mesh_gather_rows(mesh, rows, [
+            r[1][r[0].home] if r[0].home in r[1] else next(iter(
+                r[1].values())) for r in res])
         aux = _mesh_aux([r[2] for r in res], hidden.device, mesh, rows)
         return hidden, cache, aux
     dt = torch_dtype(cfg)

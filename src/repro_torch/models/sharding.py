@@ -51,17 +51,25 @@ How the port computes over a mesh, against the reference's GSPMD:
   columns (the CE's logsumexp split over the entries). Every entry
   holds the residual, and the entries' partial outputs are all-reduced
   into it as a ring does (a reduce-scatter, then an all-gather; a
-  move's gradient is counted going back). Attention whose heads
-  "model" does not divide and the recurrent mixers (RG-LRU, mLSTM,
-  sLSTM) run whole on the row's first entry, and their output is
-  all-gathered to the others. The sequence-parallel decode
+  move's gradient is counted going back). No sublayer runs whole: where
+  "model" does not divide the heads (qwen2-vl's 28, recurrentgemma's
+  10), attention splits them unevenly (:func:`split_units`: the first
+  H mod m entries take one head more), each entry reading the kv heads
+  its q heads use; the RG-LRU splits by channel blocks of the
+  recurrence width (the conv output all-gathered for the gates), the
+  mLSTM and sLSTM by head, or, where the entries outnumber the heads,
+  by blocks of a head's value columns (:func:`head_shares`; the sLSTM's
+  per-step h all-gathered within the head). The rules stay the
+  reference's: an entry reads its region of a leaf they keep whole over
+  "model". The sequence-parallel decode
   (``layers.seq_sharded_decode_attention``, the reference's one
   explicit ``shard_map`` in the LM) all-gathers q's heads first.
 * ``constrain`` has no counterpart: eager torch propagates no sharding,
   and the port places every tensor explicitly.
 
 Archs whose n_heads is not divisible by the model axis (qwen2-vl 28H,
-recurrentgemma 10H) replicate attention over "model" and shard the MLP.
+recurrentgemma 10H) replicate attention's weights over "model" and shard
+the MLP's; the compute splits all the same (above).
 """
 from __future__ import annotations
 
@@ -190,24 +198,27 @@ class Mesh:
         return {d: self.move(t if piece is None else piece(t, d), src, d,
                              kind) for d in self.computing(dsts)}
 
-    def gather(self, parts: dict, srcs, dst: int, kind: str) -> list:
+    def gather(self, parts: dict, srcs, dst: int, kind: str,
+               stand_in=None) -> list:
         """The tensors of entries ``srcs`` on ``dst``, in order, from
         ``parts`` (entry -> tensor, for those that computed one). Inside
-        :meth:`walk`, ``dst``'s own stands in for another entry's."""
-        return [self.move(parts.get(e, parts[dst]), e, dst, kind)
-                for e in srcs]
+        :meth:`walk`, ``stand_in(e, own)`` (default ``dst``'s own
+        tensor) stands in for another entry's."""
+        return [self.move(parts[e] if e in parts else parts[dst]
+                          if stand_in is None else stand_in(e, parts[dst]),
+                          e, dst, kind) for e in srcs]
 
     def all_gather(self, parts: dict, entries, kind: str,
-                   piece=None) -> dict:
+                   piece=None, stand_in=None) -> dict:
         """Each entry's tensor in ``parts`` (or its ``piece(t, dst)``) on
         every computing entry of ``entries``: {dst: [tensors in entries'
-        order]}. Inside :meth:`walk` a dst's own stands in for a tensor
-        that was not computed."""
+        order]}. Inside :meth:`walk` ``stand_in(e, own)`` (default a
+        dst's own) stands in for a tensor that was not computed."""
         got = {e: self.spread(t, e, entries, kind, piece)
                for e, t in parts.items()}
-        return {d: [got[e][d] if e in got else self.move(got[d][d], e, d,
-                                                         kind)
-                    for e in entries] for d in self.computing(entries)}
+        return {d: [got[e][d] if e in got else self.move(
+            got[d][d] if stand_in is None else stand_in(e, got[d][d]), e,
+            d, kind) for e in entries] for d in self.computing(entries)}
 
     def _counted(self, t: torch.Tensor, moves) -> torch.Tensor:
         """``t``, whose gradient under autograd counts the way back of
@@ -291,12 +302,48 @@ class _Counted(torch.autograd.Function):
         return g, None, None
 
 
+def stand_in_like(own: torch.Tensor, shape) -> torch.Tensor:
+    """Inside :meth:`Mesh.walk`, zeros of ``shape`` for another entry's
+    piece, in the graph when ``own`` is (so that its gradient's way back
+    is counted too)."""
+    t = own.new_zeros(shape)
+    if own.requires_grad and torch.is_grad_enabled():
+        t.requires_grad_(True)
+    return t
+
+
+def split_units(n: int, m: int) -> list:
+    """``n`` units (heads, channels, columns) over ``m`` parts in order:
+    part j's [lo, hi), the first ``n mod m`` parts taking one more."""
+    q, r = divmod(n, m)
+    out, lo = [], 0
+    for j in range(m):
+        out.append((lo, lo + q + (j < r)))
+        lo = out[-1][1]
+    return out
+
+
+def head_shares(n_heads: int, hd: int, m: int) -> list:
+    """Each of ``m`` entries' share of a recurrent mixer's heads, as
+    (first head, end head, first column, end column) — the columns
+    within each of its heads: whole heads by :func:`split_units` where
+    the entries do not outnumber the heads, else each head shared by a
+    run of entries (:func:`split_units` of the entries over the heads)
+    that split its ``hd`` value columns."""
+    if m <= n_heads:
+        return [(a, b, 0, hd) for a, b in split_units(n_heads, m)]
+    out = []
+    for h, (lo, hi) in enumerate(split_units(m, n_heads)):
+        out += [(h, h + 1, c0, c1) for c0, c1 in split_units(hd, hi - lo)]
+    return out
+
+
 @dataclass(frozen=True)
 class Row:
     """One DP row: its index, its entries in "model" order (the first is
-    the row's home: it reads the row's inputs, runs the sublayers the
-    rules keep whole and merges the sequence-parallel decode), that
-    entry's device, and the rows [start, start + size) of the batch."""
+    the row's home: it reads the row's inputs and merges the
+    sequence-parallel decode), that entry's device, and the rows
+    [start, start + size) of the batch."""
     index: int
     entries: tuple
     device: torch.device

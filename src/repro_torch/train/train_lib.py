@@ -273,9 +273,9 @@ def _mesh_step(model_cfg, train_cfg: TrainConfig, mesh, rules):
     microbatches (divided by their count when more than one), AdamW on
     the blocks, the global norm summed leaf by leaf in the reference's
     order over the distinct blocks. ``step.dry_row(state, batch)`` runs
-    what one device does: the first row's first entry (its slice of each
-    split sublayer, the row's whole ones), and the optimizer on that
-    entry's blocks (the dry run's per-device walk)."""
+    what one device does: the first row's first entry (its slice of every
+    sublayer), and the optimizer on that entry's blocks (the dry run's
+    per-device walk)."""
     nm = train_cfg.n_microbatches
 
     def run(state: TrainState, batch: dict, dry: bool = False):

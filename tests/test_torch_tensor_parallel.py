@@ -12,6 +12,7 @@ the compiled HLO), and, in fp32 on (2, 2) and (1, 4), ``forward``,
 ``train_step_fn``, ``prefill`` + 4 ``decode_step``s over a cache placed
 by ``cache_spec_tree``, and one ``make_train_step`` on (2, 2) at 1 and 2
 microbatches. The weights are the reference's tree drawn with numpy.
+The recurrent archs are ``test_torch_tensor_parallel_recurrent.py``'s.
 
 Bars (float32): the walked FLOPs equal; hidden states (after the final
 norm) within 1e-5 and logits within 2e-4 (the reference test's bar) max
@@ -42,8 +43,8 @@ from repro_torch.models import (LM, decode_step, forward, init_cache,
                                 train_step_fn)
 from repro_torch.models import sharding as shd
 from repro_torch.models.model import (ShardedLM, _ce_mean, _ce_sums_split,
-                                      _row_params, _split, chunked_ce,
-                                      grad_buffers)
+                                      _row_params, _shares, _sub_params,
+                                      chunked_ce, grad_buffers)
 from test_torch_mesh_train import _batch, _check, _full, _sharded_step
 from test_torch_train import _case, _ref
 
@@ -426,39 +427,64 @@ def test_odd_vocab_keeps_the_head_whole():
     assert abs(float(got) - float(want)) <= 1e-5
 
 
+# each sublayer's output projection: its rows are what an entry's share
+# of the sublayer adds up (heads, hidden columns, experts, channels)
+OUT_PROJ = {"attn": "wo_attn", "mlp": "wo", "moe": "ewo", "rglru": "w_out",
+            "mlstm": "w_out", "slstm": "w_out"}
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_which_sublayers_split(arch):
-    """On the production (16, 16) mesh and on (2, 2): MLP and MoE always
-    split; attention splits where its heads divide "model" and each
-    entry's q heads fall within whole kv groups or within one; the
-    recurrent mixers never."""
+    """On the production (16, 16) mesh and on (2, 2) every sublayer of
+    every kind splits over a row's entries: the rows of its output
+    projection that the entries read (heads, MLP columns, experts,
+    recurrence channels, a head's value columns) tile it in order, and
+    no entry reads the whole of it."""
     cfg = get_config(arch)
     lm = LM(cfg, "meta")
     for shape in ((16, 16), (2, 2)):
         mesh = _mesh(shape, "meta")
         rules = shd.make_rules(cfg, mesh)
+        specs = shd.param_spec_tree(lm, cfg, rules)
         row = mesh.rows(("data",), shape[0])[0]
-        m = shape[1]
-        for layer in lm.layers:
+        seen = set()
+        for i, layer in enumerate(lm.layers):
             for key, sub in layer.sublayers():
-                want = {"mlp": True, "moe": True,
-                        "attn": cfg.n_heads % m == 0 and (
-                            cfg.n_kv_heads % m == 0 or
-                            (cfg.n_heads // cfg.n_kv_heads)
-                            % (cfg.n_heads // m) == 0)}.get(key, False)
-                assert _split(cfg, rules, row, sub) == want, (arch, key)
+                if key in seen:
+                    continue
+                seen.add(key)
+                prefix = f"layers.{i}.{key}."
+                name = prefix + OUT_PROJ[key]
+                n = sub.spec[OUT_PROJ[key]][0][0]
+
+                def get(nm, e, region=None, whole=False):
+                    return region or shd.model_box(
+                        sub.spec[nm[len(prefix):]][0], specs[nm], mesh, e)
+                shares = _shares(cfg, row, sub)
+                rows = []
+                for e in row.entries:
+                    if key == "attn" and shares[e][1] == shares[e][0]:
+                        continue        # an entry without heads reads none
+                    rows.append(_sub_params(get, prefix, sub, e, shares,
+                                            cfg)[OUT_PROJ[key]][0])
+                assert rows[0][0] == 0 and rows[-1][1] == n, (arch, key)
+                assert all(a[1] == b[0] for a, b in zip(rows, rows[1:])), (
+                    arch, key, shape, name)
+                assert all(hi - lo < n for lo, hi in rows), (arch, key)
+                assert len(rows) > 1, (arch, key)
 
 
 @pytest.mark.parametrize("shape", [(2, 2), (1, 4)])
 def test_undivided_heads_decode_over_every_cache_entry(reference, shape):
     """qwen2-vl's 7 heads (28 at full size) do not divide "model", so its
-    attention runs whole on each row's home; its decode over the
-    sequence-sharded cache still takes every entry's slice of the cache,
-    and each entry writes the new slots in its range (positions 12-15
-    fall outside the home's on (1, 4)): prefill and 4 decode steps
-    within 2e-4 of the port's unsharded run and of the reference's
-    sharded programs on the same mesh, and the cache's positions equal
-    the unsharded cache's."""
+    attention splits them unevenly (4 and 3 on (2, 2), 2, 2, 2 and 1 on
+    (1, 4)); its decode over the sequence-sharded cache gathers every
+    entry's q heads, takes every entry's slice of the cache, and each
+    entry writes the new slots in its range (positions 12-15 fall
+    outside the home's on (1, 4)): prefill and 4 decode steps within
+    2e-4 of the port's unsharded run and of the reference's sharded
+    programs on the same mesh, and the cache's positions equal the
+    unsharded cache's."""
     _, p, cfg = _case(UNDIVIDED)
     model = params_from_reference(p, cfg, CPU)
     mesh = _mesh(shape)
@@ -483,36 +509,33 @@ def test_undivided_heads_decode_over_every_cache_entry(reference, shape):
         assert torch.equal(a["pos"], b["pos"].full("cpu"))
 
 
-def test_recurrent_mixers_run_whole_on_the_home():
-    """xlstm-1.3b has no MLP and only recurrent mixers: on (2, 2) every
-    sublayer runs whole on each row's home, as before tensor parallelism
-    — the mesh forward equals the unsharded one bit for bit, and one
-    entry walks its row's whole slice (half the unsharded walk).
-    recurrentgemma-2b's RG-LRU layers run whole beside its split MLPs
-    and attention: its forward, loss and grads hold the fp32 bars."""
-    entry, whole = _walks("xlstm-1.3b", "forward")
-    assert entry * 2 == whole
-    for arch in ("xlstm-1.3b", "recurrentgemma-2b"):
-        cfg = get_smoke_config(arch).scaled(dtype="float32")
-        jcfg, p, tcfg = _case(arch)
-        model = params_from_reference(p, tcfg, CPU)
-        mesh = _mesh((2, 2))
-        rules = shd.make_rules(tcfg, mesh)
-        sharded = ShardedLM.place(model, mesh, rules)
-        batch = {k: torch.from_numpy(v) for k, v in _batch(cfg).items()}
-        h = forward(sharded, batch["inputs"], rules)[0]
-        h0 = forward(model, batch["inputs"])[0]
-        if arch == "xlstm-1.3b":
-            assert torch.equal(h, h0)
-        np.testing.assert_allclose(_np(h), _np(h0), rtol=0, atol=1e-5)
-        loss, _, grads = train_step_fn(sharded, batch, rules)
-        loss0, _, grads0 = train_step_fn(model, batch)
-        assert abs(float(loss) - float(loss0)) <= 1e-5
-        for name, g in grads.items():
-            want = _np(grads0[name])
-            np.testing.assert_allclose(g.full("cpu").numpy(), want, rtol=0,
-                                       atol=1e-5 * float(np.abs(want).max()),
-                                       err_msg=name)
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "recurrentgemma-2b"])
+def test_recurrent_mixers_split_over_the_row(arch):
+    """The recurrent mixers split over a row's entries (RG-LRU by channel
+    block, mLSTM and sLSTM by head): on (2, 2) one entry walks a quarter
+    of the unsharded forward (xlstm-1.3b has no MLP, so its mixers are
+    all it walks), and the mesh forward, loss and every gradient leaf
+    hold the fp32 bars against the unsharded calls."""
+    entry, whole = _walks(arch, "forward")
+    assert entry * 4 == whole
+    cfg = get_smoke_config(arch).scaled(dtype="float32")
+    _, p, tcfg = _case(arch)
+    model = params_from_reference(p, tcfg, CPU)
+    mesh = _mesh((2, 2))
+    rules = shd.make_rules(tcfg, mesh)
+    sharded = ShardedLM.place(model, mesh, rules)
+    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg).items()}
+    h = forward(sharded, batch["inputs"], rules)[0]
+    h0 = forward(model, batch["inputs"])[0]
+    np.testing.assert_allclose(_np(h), _np(h0), rtol=0, atol=1e-5)
+    loss, _, grads = train_step_fn(sharded, batch, rules)
+    loss0, _, grads0 = train_step_fn(model, batch)
+    assert abs(float(loss) - float(loss0)) <= 1e-5
+    for name, g in grads.items():
+        want = _np(grads0[name])
+        np.testing.assert_allclose(g.full("cpu").numpy(), want, rtol=0,
+                                   atol=1e-5 * float(np.abs(want).max()),
+                                   err_msg=name)
 
 
 def test_replicated_batch_is_computed_once():

@@ -10,6 +10,12 @@ the bf16 class), decode-check, training-check, restore and training
 numbers, and the dry run's.
 
     python tools/mesh_phase_times.py [--no-dryrun]
+    python tools/mesh_phase_times.py --recurrent
+
+``--recurrent`` runs only ``[mesh]``'s recurrent checks
+(``chip_smoke._mesh_recurrent_checks``: recurrentgemma-2b and xlstm-1.3b
+at full width, fp32, on (2, 2) and (1, 4) against the unsharded card)
+and prints their lines and one JSON line.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ import argparse
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -29,6 +36,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--no-dryrun", action="store_true",
                     help="skip the [dryrun] walks (minutes of host time)")
+    ap.add_argument("--recurrent", action="store_true",
+                    help="only [mesh]'s recurrent checks")
     args = ap.parse_args()
     import torch
 
@@ -42,6 +51,12 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
+    if args.recurrent:
+        t0 = time.perf_counter()
+        out = smoke._mesh_recurrent_checks(torch, dev, log)
+        print(json.dumps({"device": smi, "s": time.perf_counter() - t0,
+                          "recurrent": out}))
+        return 0
     lm = {"serve": smoke._lm_serve(torch, dev, smi, log)}
     train = {"run": smoke._train_full_width(torch, dev, smi, log)}
     out = smoke.phase_mesh(torch, ops, dev, smi, lm, train, log)
@@ -49,7 +64,7 @@ def main() -> int:
         out["dryrun"] = smoke.phase_dryrun(smoke._dryrun_start(), None,
                                            out["run"], smi, log)
     print(json.dumps({"device": smi, **{k: out[k] for k in (
-        "phase_s", "serve", "decode", "checks", "restore", "run",
+        "phase_s", "serve", "decode", "checks", "recurrent", "restore", "run",
         "dryrun") if k in out}}))
     return 0
 
