@@ -64,13 +64,25 @@ class ScalLoPS:
     def __init__(self, cfg: LSHConfig, *, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        # bytes taken from host arrays onto a card, never reset (a CPU
+        # pipeline moves nothing and counts nothing)
+        self.h2d_bytes = 0
+
+    def _counted(self, x, convert) -> torch.Tensor:
+        """``x`` as a tensor (numpy through ``convert``), its bytes added to
+        ``h2d_bytes`` when it is a host array bound for a card."""
+        if not isinstance(x, torch.Tensor):
+            x = convert(x)
+        if x.device.type == "cpu" and self.device.type != "cpu":
+            self.h2d_bytes += x.numel() * x.element_size()
+        return x
 
     def _chunks(self, ids, lengths, per_residue_bytes: int):
         """Yield (ids, lengths) row chunks on the device."""
-        if not isinstance(ids, torch.Tensor):
-            ids = torch.from_numpy(np.ascontiguousarray(ids, np.int8))
-        if not isinstance(lengths, torch.Tensor):
-            lengths = torch.from_numpy(np.asarray(lengths, np.int32))
+        ids = self._counted(ids, lambda a: torch.from_numpy(
+            np.ascontiguousarray(a, np.int8)))
+        lengths = self._counted(lengths, lambda a: torch.from_numpy(
+            np.asarray(a, np.int32)))
         N, L = ids.shape
         step = max(1, _CHUNK_BYTES // max(1, L * per_residue_bytes))
         for i in range(0, N, step):
@@ -104,9 +116,8 @@ class ScalLoPS:
     def _on_device(self, x, dtype=None) -> torch.Tensor:
         """A tensor on the pipeline's device; numpy signatures (uint32)
         become int32 bit patterns, numpy masks bool tensors."""
-        if not isinstance(x, torch.Tensor):
-            x = (u32_to_i32(x) if dtype is None
-                 else torch.from_numpy(np.asarray(x, dtype)))
+        x = self._counted(x, u32_to_i32 if dtype is None else
+                          lambda a: torch.from_numpy(np.asarray(a, dtype)))
         return x.to(self.device).contiguous()
 
     def search(self, q_sigs, r_sigs, *, max_pairs: int | None = None,

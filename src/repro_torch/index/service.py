@@ -25,12 +25,16 @@ reports overflow when a bucket exceeds the candidate cap, and the engine
 grows the cap and retries; the pair-dump path
 (:meth:`QueryEngine.search_pairs`) grows on the ``overflowed`` flag of
 :class:`~repro_torch.core.pipeline.SearchResult` the same way.
+
+Both entries keep always-on per-engine stats (:meth:`QueryEngine.stats`,
+:meth:`QueryEngine.pair_stats`) and record spans when the tracer is on.
 """
 from __future__ import annotations
 
 import itertools
 import time
 import warnings
+from collections import deque
 from dataclasses import dataclass
 
 import numpy as np
@@ -41,6 +45,7 @@ from ..core.hamming import hamming_distance
 from ..core.pipeline import ScalLoPS
 from ..kernels import ops
 from ..obs import REGISTRY, Histogram, span
+from ..obs.trace import TRACER, new_trace_id, trace_context
 from ..obs.trace import record as record_span
 from .spgemm import row_product_positions
 from .store import SignatureIndex
@@ -222,6 +227,41 @@ class _Stats:
         self._m_trunc.inc()
 
 
+#: jobs the pair dump's log keeps: well over a 10 s window's (d = 1 on
+#: 547,169 reads runs ~150 jobs there on an H100)
+PAIR_LOG_JOBS = 4096
+
+
+class _DeviceClock:
+    """A pool of timing events on the pipeline's card, recorded on its
+    current stream at stage boundaries and read only after a host sync has
+    passed them, so reading adds no sync. On a CPU pipeline it records
+    nothing and every span is None."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.on = device.type == "cuda"
+        self._pool: list = []
+
+    def mark(self, i: int) -> None:
+        """Record the job's ``i``-th event (``i`` counts up from 0)."""
+        if not self.on:
+            return
+        if i == len(self._pool):
+            self._pool.append(torch.cuda.Event(enable_timing=True))
+        self._pool[i].record(torch.cuda.current_stream(self.device))
+
+    def seconds(self, a: int, b: int) -> float | None:
+        """Device seconds from event ``a`` to event ``b``."""
+        if not self.on:
+            return None
+        return self._pool[a].elapsed_time(self._pool[b]) / 1e3
+
+
+def _ms(seconds: float | None) -> float | None:
+    return None if seconds is None else seconds * 1e3
+
+
 class QueryEngine:
     """Micro-batched query serving over a built index, on the index's
     device.
@@ -246,6 +286,8 @@ class QueryEngine:
         self._probe_cap = self.cfg.probe_cap
         self._queue: list[tuple[np.ndarray, int]] = []
         self._stats = _Stats(self.name)
+        self._pair_log: deque = deque(maxlen=PAIR_LOG_JOBS)
+        self._clock = _DeviceClock(self.device)
         self._ref_dev = None
         if self.cfg.rerank and ref_seqs is None:
             raise ValueError("rerank=True needs ref_seqs=(ref_ids, ref_lens)")
@@ -381,17 +423,59 @@ class QueryEngine:
         """Classic unordered pair dump (``ScalLoPS.search`` with the index
         config's ``join_method``) against the indexed references, honouring
         the result's ``overflowed`` flag: capacity doubles and the join
-        retries until nothing is truncated or ``max_grow`` is reached."""
-        q_sigs = self.sl.signatures(q_ids, q_lens)
-        q_valid = self.sl.feature_counts(q_ids, q_lens) > 0
+        retries until nothing is truncated or ``max_grow`` is reached.
+
+        Every job adds an entry to :meth:`pair_stats`: its host stamps,
+        attempts, bytes uploaded, and the device time of job 1 and of each
+        attempt, from CUDA events read after the overflow check's sync (no
+        sync of their own). With the tracer on, the job is a
+        ``search_pairs`` span with a trace id of its own, around
+        ``pairs.job1`` and one ``pairs.join`` span an attempt; each span
+        carries its device time as ``dev_ms`` (None on the CPU)."""
+        sl, clock = self.sl, self._clock
+        h2d0 = sl.h2d_bytes
+        t0 = time.perf_counter()
+        clock.mark(0)
+        q_sigs = sl.signatures(q_ids, q_lens)
+        q_valid = sl.feature_counts(q_ids, q_lens) > 0
+        clock.mark(1)
+        t_job1 = time.perf_counter()
         mp = max_pairs or self.index.cfg.max_pairs
+        attempts = []       # (host start, host end, capacity, overflowed)
         while True:
-            res = self.sl.search(q_sigs, self.index.device_sigs,
-                                 max_pairs=mp, q_valid=q_valid,
-                                 r_valid=self.index.device_valid)
-            if not bool(res.overflowed) or mp >= max_grow:
-                return res
+            ta = time.perf_counter()
+            clock.mark(2 + 2 * len(attempts))
+            res = sl.search(q_sigs, self.index.device_sigs,
+                            max_pairs=mp, q_valid=q_valid,
+                            r_valid=self.index.device_valid)
+            clock.mark(3 + 2 * len(attempts))
+            overflowed = bool(res.overflowed)
+            attempts.append((ta, time.perf_counter(), mp, overflowed))
+            if not overflowed or mp >= max_grow:
+                break
             mp = min(mp * 2, max_grow)  # grow-and-retry
+        t1 = time.perf_counter()
+        join_dev = (tuple(clock.seconds(2 + 2 * i, 3 + 2 * i)
+                          for i in range(len(attempts)))
+                    if clock.on else None)
+        self._pair_log.append(dict(
+            t0=t0, t1=t1, attempts=len(attempts),
+            h2d_bytes=sl.h2d_bytes - h2d0,
+            job1_dev_s=clock.seconds(0, 1), join_dev_s=join_dev))
+        if TRACER.enabled:
+            with trace_context((new_trace_id(),)):
+                record_span("search_pairs", t0, t1, cat="pairs",
+                            engine=self.name, reads=len(q_lens),
+                            d=self.index.cfg.d, attempts=len(attempts),
+                            capacity=mp, dev_ms=_ms(clock.seconds(
+                                0, 1 + 2 * len(attempts))))
+                record_span("pairs.job1", t0, t_job1, cat="pairs",
+                            dev_ms=_ms(clock.seconds(0, 1)))
+                for i, (ta, tb, cap, ovf) in enumerate(attempts):
+                    record_span("pairs.join", ta, tb, cat="pairs", attempt=i,
+                                capacity=cap, overflowed=ovf,
+                                dev_ms=_ms(join_dev[i] if join_dev else None))
+        return res
 
     # ------------------------------------------------------------ rerank
     def _rerank(self, ids, lens, nid, nd):
@@ -481,8 +565,10 @@ class QueryEngine:
         return len(rungs) * len(quanta)
 
     def reset_stats(self) -> None:
-        """Zero the ``stats()`` view; the registry children stay monotonic."""
+        """Zero the ``stats()`` and ``pair_stats()`` views; the registry
+        children stay monotonic."""
         self._stats.reset()
+        self._pair_log.clear()
 
     # ------------------------------------------------------------ stats
     def stats(self) -> dict:
@@ -512,3 +598,12 @@ class QueryEngine:
             truncations=st.truncations,
             index_epoch=self.index.epoch,
         )
+
+    def pair_stats(self) -> list[dict]:
+        """The pair dump's counterpart of :meth:`stats`: the newest
+        :data:`PAIR_LOG_JOBS` :meth:`search_pairs` jobs since the last
+        reset, oldest first. A job holds its host ``perf_counter`` stamps
+        ``t0`` and ``t1``, its join ``attempts``, ``h2d_bytes`` (0 on a CPU
+        pipeline), job 1's device seconds ``job1_dev_s`` and each attempt's,
+        ``join_dev_s`` (both None without a card)."""
+        return list(self._pair_log)

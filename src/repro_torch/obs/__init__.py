@@ -6,7 +6,10 @@ The port's copy of ``repro/obs``:
   ``AsyncEngine.submit()`` and carried (contextvar) through router,
   replica, ring probe and re-rank; lifecycle events (seal, delta refresh,
   compactions); a bounded thread-safe buffer with Chrome/Perfetto export.
-  Disabled tracing costs one branch.
+  Disabled tracing costs one branch. Spans sit on the wall clock that
+  ``torch.profiler`` uses (``ts`` in seconds since the Unix epoch), and
+  ``TRACER.export(path, merge=<the profiler's export_chrome_trace file>)``
+  writes both traces as one timeline.
 * ``registry`` — fixed-log-bucket histograms that merge exactly across
   replicas, declared counters and gauges, one process-wide
   :data:`REGISTRY`, Prometheus text exposition and a JSON snapshot.

@@ -14,6 +14,16 @@ timeline.
   every span recorded beneath it (router, replica, ring probe, re-rank)
   carries the queries it served.
 * **Bounded buffer**: a ``deque(maxlen=capacity)``; the newest spans win.
+* **One clock with the profiler**: spans are stamped with
+  ``time.perf_counter`` and placed on the wall clock (``time.time_ns``,
+  ns since the Unix epoch) that ``torch.profiler`` (kineto) stamps its
+  events on, through one (``perf_counter_ns``, ``time_ns``) pair the
+  tracer reads when it is made. ``spans()`` gives ``ts`` in wall-clock
+  seconds. A profiler's ``export_chrome_trace`` file writes its events
+  relative to its ``baseTimeNanoseconds``: ``export(path, merge=that
+  file)`` writes one file with both, on that base, which Perfetto opens
+  as one timeline. The spans are not ``record_function`` ranges, so they
+  add nothing to the profiler's device-side annotations.
 """
 from __future__ import annotations
 
@@ -66,7 +76,9 @@ class Tracer:
         self.enabled = False
         self._buf: deque = deque(maxlen=int(capacity))
         self._lock = threading.Lock()
-        self._t0 = time.perf_counter()      # trace epoch (ts are relative)
+        # the epoch: one perf_counter reading and the wall clock beside it
+        self._perf0 = time.perf_counter_ns() / 1e9
+        self._wall0_ns = time.time_ns()
         self._dropped = 0
 
     # -------------------------------------------------------------- control
@@ -83,7 +95,6 @@ class Tracer:
         with self._lock:
             self._buf.clear()
             self._dropped = 0
-            self._t0 = time.perf_counter()
 
     def __len__(self) -> int:
         with self._lock:
@@ -99,7 +110,7 @@ class Tracer:
             trace = _TRACE_CTX.get()
             if trace:
                 args["trace"] = list(trace)
-        ev = (name, cat, t0 - self._t0, None if t1 is None else t1 - t0,
+        ev = (name, cat, t0 - self._perf0, None if t1 is None else t1 - t0,
               threading.get_ident(), threading.current_thread().name, args)
         with self._lock:
             if len(self._buf) == self._buf.maxlen:
@@ -108,27 +119,32 @@ class Tracer:
 
     # -------------------------------------------------------------- read
     def spans(self) -> list[dict]:
-        """Snapshot as dicts: {name, cat, ts (s), dur (s or None), tid,
-        thread, args}; ``args["trace"]`` holds the query trace IDs."""
+        """Snapshot as dicts: {name, cat, ts (wall-clock s since the Unix
+        epoch), dur (s or None), tid, thread, args}; ``args["trace"]``
+        holds the query trace IDs."""
         with self._lock:
             evs = list(self._buf)
-        return [dict(name=n, cat=c, ts=ts, dur=dur, tid=tid, thread=thr,
-                     args=args) for n, c, ts, dur, tid, thr, args in evs]
+        wall0 = self._wall0_ns / 1e9
+        return [dict(name=n, cat=c, ts=wall0 + ts, dur=dur, tid=tid,
+                     thread=thr, args=args)
+                for n, c, ts, dur, tid, thr, args in evs]
 
-    def chrome_trace(self) -> dict:
+    def chrome_trace(self, base_ns: int = 0) -> dict:
         """Chrome ``trace_event`` JSON object: complete ("X") events in
-        microseconds, instants as "i" events, thread names as metadata
-        ("M") events."""
+        microseconds of the wall clock since ``base_ns`` (ns since the Unix
+        epoch), instants as "i" events, thread names as metadata ("M")
+        events."""
         pid = os.getpid()
         events = []
         threads = {}
         with self._lock:
             evs = list(self._buf)
             dropped = self._dropped
+        origin_us = (self._wall0_ns - int(base_ns)) / 1e3
         for name, cat, ts, dur, tid, thread, args in evs:
             threads.setdefault(tid, thread)
             ev = {"name": name, "cat": cat, "pid": pid, "tid": tid,
-                  "ts": ts * 1e6, "args": args}
+                  "ts": origin_us + ts * 1e6, "args": args}
             if dur is None:
                 ev.update(ph="i", s="t")
             else:
@@ -139,9 +155,18 @@ class Tracer:
         return {"traceEvents": meta + events, "displayTimeUnit": "ms",
                 "otherData": {"dropped_spans": dropped}}
 
-    def export(self, path) -> int:
-        """Write the Chrome trace JSON; returns the number of events."""
-        obj = self.chrome_trace()
+    def export(self, path, *, merge=None) -> int:
+        """Write the Chrome trace JSON; returns the number of events. With
+        ``merge=`` the path of a ``torch.profiler`` ``export_chrome_trace``
+        file, write that trace with these spans added on its timeline."""
+        if merge is None:
+            obj = self.chrome_trace()
+        else:
+            with open(merge) as fh:
+                obj = json.load(fh)
+            ours = self.chrome_trace(obj.get("baseTimeNanoseconds", 0))
+            obj["traceEvents"] = obj.get("traceEvents", []) + \
+                ours["traceEvents"]
         with open(path, "w") as fh:
             json.dump(obj, fh)
         return len(obj["traceEvents"])
