@@ -129,6 +129,12 @@ Phases, any failure exits non-zero:
               at k=4 (phase 9) has a row of its own,
               ``siggen_accumulate_k4``. The first inputs phase 11 gave
               K5, K4, K3, K7 and K2 are replayed too (``mr_*`` keys).
+              ``table_sums`` (job 1's table route, which replaces no TPU
+              kernel) is replayed at its first inputs, the index build's
+              454,401 refs, and at phase 3's read set (``reads_*`` keys),
+              the count table beside each (``counts_*`` keys); its bound
+              is the table rows' L2 bytes at the L2 read rate measured on
+              this card (``L2_BYTES_PER_S``).
 14. small   — a 2,000-ref index served, and a 2,000-sequence corpus
               clustered by ``all_pairs_search`` (the kernel route above,
               and the default PID route), ``ScalLoPS.search`` with each
@@ -288,6 +294,11 @@ import numpy as np
 # CUDA cores' 32-bit rate (the data sheet's float32 figure; integer
 # operations issue at no higher rate, so bounds from it are not too high).
 HBM_BYTES_PER_S = 3.35e12
+# L2 read rate of an NVIDIA H100 80GB HBM3 at 700 W, the best that
+# tools/l2_read_rate.py read: 16 B loads that bypass L1 (ld.global.cg)
+# streamed over an L2-resident buffer of 4-32 MB read 6.84-7.42 TB/s (3.10
+# TB/s over 4 GB, from HBM)
+L2_BYTES_PER_S = 7.42e12
 INT8_TC_OPS_PER_S = 1979e12
 CUDA_CORE_OPS_PER_S = 67e12
 
@@ -655,9 +666,11 @@ def _timed_search(torch, sl, q, r, mp):
 def phase_search(torch, ops, dev, index, serve_data, serve_probe, log):
     """Job 2 at the metagenomic scale against the Swiss-Prot index of
     phase 2. Returns the dense join's ``search_pairs`` launches (K6's
-    path), the inputs of its first emission tile (K2) and, for
-    [mapreduce], the d=1 signatures and the flip join's pair keys."""
+    path), the inputs of its first emission tile (K2), for [mapreduce]
+    the d=1 signatures and the flip join's pair keys, and the count table
+    and the first ``table_sums`` inputs of the flip join's job 1."""
     from repro_torch.configs.scallops import perf_config
+    from repro_torch.core import simhash
     from repro_torch.core.pipeline import ScalLoPS
     from repro_torch.data.synthetic import (SyntheticProteinConfig,
                                             make_protein_sets)
@@ -706,6 +719,14 @@ def phase_search(torch, ops, dev, index, serve_data, serve_probe, log):
         inner, ops.RECORDED = ops.RECORDED, outer
         if join == "dense":
             emission = inner.get("hamming_dist")
+        if join == "flip":
+            table_reads = (simhash._device_table("count", cfg.k, cfg.T, 0,
+                                                 "java", dev),
+                           inner["table_sums"])
+        if lw["table_sums"] != 2:
+            raise AssertionError(f"{join}: search_pairs launched table_sums "
+                                 f"{lw['table_sums']} times, not twice "
+                                 f"(signatures, counts)")
         for name, rec in inner.items():
             outer.setdefault(name, rec)
         pairs_s = time.perf_counter() - t0
@@ -723,8 +744,9 @@ def phase_search(torch, ops, dev, index, serve_data, serve_probe, log):
             f"after the validity masks, max_pairs reached {mp}, "
             f"{(mp // cfg.max_pairs).bit_length() - 1} retries); "
             f"ScalLoPS.search on the prepared signatures at that capacity "
-            f"{join_s:.3f} s ({int(raw.count)} pairs); K6/K2 launches in "
-            f"search_pairs {lw['hamming_count']}/{lw['hamming_dist']}")
+            f"{join_s:.3f} s ({int(raw.count)} pairs); K6/K2/table_sums "
+            f"launches in search_pairs {lw['hamming_count']}/"
+            f"{lw['hamming_dist']}/{lw['table_sums']}")
     if launches["dense"]["hamming_count"] <= 0:
         raise AssertionError("the dense join never launched K6")
     if emission is None:
@@ -849,7 +871,7 @@ def phase_search(torch, ops, dev, index, serve_data, serve_probe, log):
         f"neighbours == the band index's ({sum(map(len, a))})")
     del fidx, eng
     torch.cuda.empty_cache()
-    return launches["dense"], emission, mr_data
+    return launches["dense"], emission, mr_data, table_reads
 
 
 def _padded(*blocks):
@@ -2285,6 +2307,22 @@ def _bounds(name, args, kw):
     """(bound_ms, bound_by) of one kernel call from its inputs: the work
     these inputs need (real cells of a pair block, slots of a pair
     buffer), not the most the shapes could hold."""
+    if name == "table_sums":
+        # the residues inside the lengths, the lengths and the outputs once
+        # from HBM; every valid shingle's table row from L2, where the
+        # table stays
+        ids, lens, table = args
+        N, L = ids.shape
+        k = kw["k"]
+        row = table[0].numel() * 4
+        inside = lens.clamp(0, L)
+        nbytes = (int(inside.sum()) + lens.numel() * lens.element_size()
+                  + table.numel() * 4 + N * max(row // 32, 4))
+        shingles = int((inside - k + 1).clamp_min(0).sum())
+        t_l2, t_bytes = shingles * row / L2_BYTES_PER_S, nbytes / \
+            HBM_BYTES_PER_S
+        return ((t_l2 * 1e3, "L2 bytes") if t_l2 >= t_bytes
+                else (t_bytes * 1e3, "bytes"))
     if name == "siggen_accumulate":
         rows, cb, H = args
         S, D = rows.shape
@@ -2349,6 +2387,8 @@ KERNELS = {
                     "src/repro/kernels/spgemm.py:93"),
     "sw_rowwave": ("src/repro_torch/kernels/csrc/sw.cu",
                    "src/repro/kernels/sw.py:95"),
+    "table_sums": ("src/repro_torch/kernels/csrc/tablesum.cu",
+                   "none: src/repro/core/simhash.py:169 is plain jnp"),
 }
 
 
@@ -2371,6 +2411,44 @@ def _count_twin(q, r, *, d):
     rows = max(1, (1 << 27) // max(r.shape[0], 1))
     return torch.cat([ref.hamming_count_ref(q[i:i + rows], r, d)
                       for i in range(0, q.shape[0], rows)])
+
+
+def _table_twin(ids, lens, table, *, k):
+    """table_sums' twin over row chunks of the pipeline's CPU budget: the
+    twin gathers (rows, S, f) int32, ~47 GB for the refs at once."""
+    import torch
+    from repro_torch.kernels import ref
+    L = ids.shape[1]
+    rows = max(1, (1 << 30) // (L * 8 * max(table[0].numel(), 2)))
+    return torch.cat([ref.table_sums_ref(ids[i:i + rows], lens[i:i + rows],
+                                         table, k=k)
+                      for i in range(0, ids.shape[0], rows)])
+
+
+def _table_sums_extra(torch, args, kw, reads, log):
+    """table_sums with the count table at its first inputs, then both
+    tables at phase 3's read set: each checked exactly against the twin
+    and timed. The JSON keys they add to its row."""
+    from repro_torch.kernels.tablesum import table_sums
+    count_table, (reads_args, reads_kw) = reads
+    out = {}
+    for tag, (ids, lens, table), tkw in (
+            ("counts", (args[0], args[1], count_table), {"k": kw["k"]}),
+            ("reads", reads_args, reads_kw),
+            ("reads_counts", (reads_args[0], reads_args[1], count_table),
+             {"k": reads_kw["k"]})):
+        _, _, ms, plain_ms, bound_ms, bound_by = _check_and_time(
+            torch, "table_sums", (ids, lens, table), tkw, table_sums,
+            _table_twin, 20, 1)
+        log(f"[kernels] table_sums {tag} at {tuple(ids.shape)} x "
+            f"{tuple(table.shape)}: exact vs twin; kernel {ms:.4f} ms "
+            f"(device, 20 launches in one CUDA graph), twin {plain_ms:.4f} "
+            f"ms, bound {bound_ms * 1e3:.3f} us ({bound_by})")
+        out.update({f"{tag}_ms": ms, f"{tag}_plain_ms": plain_ms,
+                    f"{tag}_bound_ms": bound_ms,
+                    f"{tag}_shape": [list(ids.shape), list(table.shape)]})
+        torch.cuda.empty_cache()
+    return out
 
 
 def _library(torch, name, args, kw, got, log):
@@ -2491,7 +2569,7 @@ def _k2_emission(torch, emission, log):
 
 
 def phase_kernels(torch, recorded, full, real, stages, launches, wave_l,
-                  emission, log):
+                  emission, table_reads, log):
     from repro_torch.core.alphabet import PAD
     from repro_torch.kernels import ref
     from repro_torch.kernels.hamming import hamming_count, hamming_dist
@@ -2499,6 +2577,7 @@ def phase_kernels(torch, recorded, full, real, stages, launches, wave_l,
     from repro_torch.kernels.spgemm import upper_pairs
     from repro_torch.kernels.sw import sw_rowwave, ungapped_scores, \
         wave_scores
+    from repro_torch.kernels.tablesum import table_sums
 
     runners = {   # name: (kernel launcher, plain twin, reps, twin reps);
         # twin reps 0: the twin is timed by the one call that checks it
@@ -2511,6 +2590,7 @@ def phase_kernels(torch, recorded, full, real, stages, launches, wave_l,
         "ungapped_scores": (ungapped_scores, ref.ungapped_scores_ref, 50, 1),
         "upper_pairs": (upper_pairs, ref.upper_pairs_ref, 10, 1),
         "sw_rowwave": (sw_rowwave, ref.sw_rowwave_ref, 50, 1),
+        "table_sums": (table_sums, _table_twin, 20, 1),
     }
     # K4 and K7: their first waves are nearly empty, so their row is a
     # full wave of the most used shape (with the first launch's arguments)
@@ -2530,7 +2610,9 @@ def phase_kernels(torch, recorded, full, real, stages, launches, wave_l,
             _siggen_int_mm(torch, args, kw, got, log)
         del got
         extra = (_k2_emission(torch, emission, log)
-                 if name == "hamming_dist" else {})
+                 if name == "hamming_dist" else
+                 _table_sums_extra(torch, args, kw, table_reads, log)
+                 if name == "table_sums" else {})
         shapes = " x ".join(str(tuple(a.shape)) for a in args)
         log(f"[kernels] {name} at {shapes}{' ' + json.dumps(kw) if kw else ''}"
             f": exact vs twin; kernel "
@@ -4211,7 +4293,7 @@ def _run_phases(torch, ops, SENTINEL, log, t_start, dev, smi, dryrun_proc):
         torch, ops, lambda: phase_serve(torch, ops, dev, log))
     log(f"[main] kernel launches on the serving path: "
         f"{json.dumps(serve_l)}")
-    search_l, emission, mr_data = phase_search(
+    search_l, emission, mr_data, table_reads = phase_search(
         torch, ops, dev, index, serve_data, serve_probe, log)
     log(f"[main] kernel launches on the dense join's search_pairs (K6's "
         f"path): {json.dumps(search_l)}")
@@ -4253,9 +4335,11 @@ def _run_phases(torch, ops, SENTINEL, log, t_start, dev, smi, dryrun_proc):
                                   "wave_scores_affine", "sw_rowwave")),
             ("[fleet]", fleet_l, ("wave_scores_linear",)),
             ("[persist]", persist_l, ("hamming_dist", "wave_scores_linear",
-                                      "wave_scores_affine")),
+                                      "wave_scores_affine", "table_sums")),
             ("[quality]", quality_l, ("siggen_accumulate", "sw_rowwave",
-                                      "wave_scores_linear"))):
+                                      "wave_scores_linear", "table_sums")),
+            ("[serve] (the index build and serving)", serve_l,
+             ("table_sums",))):
         missing = [k for k in names if counts.get(k, 0) <= 0]
         if missing:
             raise AssertionError(f"kernels never launched on the {path} "
@@ -4274,10 +4358,11 @@ def _run_phases(torch, ops, SENTINEL, log, t_start, dev, smi, dryrun_proc):
     mr = _replay_tier(torch, (("mr", mr_rec, MR_REPLAYED),), log)
     del mr_rec
     # each kernel's count from its own path: K1 the matmul build, K2 and
-    # K3 serving, K6 the dense join, K4 and K5 the timed all_pairs_search,
-    # K7 the row wave
+    # K3 serving, K6 and table_sums the dense join's search_pairs, K4 and
+    # K5 the timed all_pairs_search, K7 the row wave
     launches = {"siggen_accumulate": siggen_l["siggen_accumulate"],
-                "hamming_count": search_l["hamming_count"]}
+                "hamming_count": search_l["hamming_count"],
+                "table_sums": search_l["table_sums"]}
     launches.update({k: serve_l[k] for k in
                      ("hamming_dist", "wave_scores_linear",
                       "wave_scores_affine")})
@@ -4295,7 +4380,7 @@ def _run_phases(torch, ops, SENTINEL, log, t_start, dev, smi, dryrun_proc):
               "wave_scores_linear": pair_l["wave_scores_linear"],
               "sw_rowwave": rowwave_l["sw_rowwave"]}
     rows = phase_kernels(torch, recorded, full, real, stages, launches,
-                         wave_l, emission, log)
+                         wave_l, emission, table_reads, log)
     rows.append(phase_kernel_k4(torch, k4_record,
                                 quality_l["siggen_accumulate"], log))
     phase_small(torch, dev, log)

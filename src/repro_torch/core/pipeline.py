@@ -23,10 +23,9 @@ from . import simhash
 from .hamming import threshold_pairs
 from .join import band_join, flip_join
 
-# Host-to-device chunking budget: job 1 runs over row chunks whose
-# intermediates (the (n, S, f) table gather, or the (R, D) K1 operand plus
-# its (R, f) output) stay under this many bytes. Rows are independent, so
-# chunking is bit-exact; the reference materializes the whole corpus at
+# Host-to-device chunking budget: job 1 runs over row chunks whose device
+# bytes stay under this many (ScalLoPS._chunk_rows). Rows are independent,
+# so chunking is bit-exact; the reference materializes the whole corpus at
 # once, which at Swiss-Prot scale (454,401 refs x ~770 residues, f=32)
 # would be ~45 GB.
 _CHUNK_BYTES = 1 << 30
@@ -77,14 +76,33 @@ class ScalLoPS:
             self.h2d_bytes += x.numel() * x.element_size()
         return x
 
-    def _chunks(self, ids, lengths, per_residue_bytes: int):
+    def _chunk_rows(self, L: int, kind: str) -> int:
+        """Rows of a job-1 chunk of width ``L`` (``kind`` "signatures" or
+        "counts"): as many as keep what a row holds on the device at once
+        under ``_CHUNK_BYTES``. On the card's table route (the
+        ``table_sums`` kernel: the table signatures, and every count) that
+        is the row's residues, its length and its output. Elsewhere it is
+        the twin's (S, f) int32 gather, budgeted at 8 f bytes a residue (16
+        for a count), or K1's (R, k * 21) operand and (R, f) output."""
+        cfg = self.cfg
+        if self.device.type == "cuda" and (
+                kind == "counts" or cfg.siggen_method == "table"):
+            row = L + 8 + (cfg.f // 8 if kind == "signatures" else 4)
+        elif kind == "counts":
+            row = 16 * L
+        else:
+            row = 8 * L * (cfg.f + (cfg.k * 21 if cfg.siggen_method
+                                    == "matmul" else 0))
+        return max(1, _CHUNK_BYTES // max(1, row))
+
+    def _chunks(self, ids, lengths, kind: str):
         """Yield (ids, lengths) row chunks on the device."""
         ids = self._counted(ids, lambda a: torch.from_numpy(
             np.ascontiguousarray(a, np.int8)))
         lengths = self._counted(lengths, lambda a: torch.from_numpy(
             np.asarray(a, np.int32)))
         N, L = ids.shape
-        step = max(1, _CHUNK_BYTES // max(1, L * per_residue_bytes))
+        step = self._chunk_rows(L, kind)
         for i in range(0, N, step):
             yield (ids[i:i + step].to(self.device, non_blocking=True),
                    lengths[i:i + step].to(self.device, non_blocking=True))
@@ -93,24 +111,23 @@ class ScalLoPS:
     def signatures(self, ids, lengths) -> torch.Tensor:
         """Packed signatures (N, f//32) int32 on the device."""
         cfg = self.cfg
-        width = cfg.f + (cfg.k * 21 if cfg.siggen_method == "matmul" else 0)
         parts = [simhash.signatures(i, l, k=cfg.k, T=cfg.T, f=cfg.f,
                                     scheme=cfg.scheme,
                                     method=cfg.siggen_method)
-                 for i, l in self._chunks(ids, lengths, 8 * width)]
+                 for i, l in self._chunks(ids, lengths, "signatures")]
         if not parts:
             return torch.zeros((0, cfg.f // 32), dtype=torch.int32,
                                device=self.device)
-        return torch.cat(parts)
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
 
     def feature_counts(self, ids, lengths) -> torch.Tensor:
         """Per-sequence neighbour-feature counts (N,) int32 on the device
         (0 => degenerate all-ones signature; the paper filters those)."""
         parts = [simhash.feature_counts(i, l, k=self.cfg.k, T=self.cfg.T)
-                 for i, l in self._chunks(ids, lengths, 16)]
+                 for i, l in self._chunks(ids, lengths, "counts")]
         if not parts:
             return torch.zeros((0,), dtype=torch.int32, device=self.device)
-        return torch.cat(parts)
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
 
     # ---- job 2: Signature Processor ----
     def _on_device(self, x, dtype=None) -> torch.Tensor:

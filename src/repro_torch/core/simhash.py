@@ -10,7 +10,9 @@ Two mathematically identical paths, as in ``repro/core/simhash.py``:
 * ``method="table"`` (default) — the total contribution of a shingle to V
   depends only on its word id, so ``C[p] = Σ_w [score(p,w) >= T]·score·H[w]``
   is tabulated once per (k, T, f) and signature generation becomes a
-  gather + sum over shingle ids.
+  gather + sum over shingle ids. On CUDA that is the ``table_sums`` kernel
+  (``kernels/csrc/tablesum.cu``), which keeps the gathered rows out of
+  device memory; the feature counts take the same kernel.
 
 Packed signatures are (N, f//32) int32 tensors holding the uint32 words of
 the reference bit for bit (little-endian bit order within a word).
@@ -26,7 +28,7 @@ from ..obs.jit import trace_sentinel
 from ..util import as_unsigned, canonical_device, full_float32_matmul
 from .alphabet import ALPHABET_SIZE, AMINO_ACIDS, BLOSUM62_PADDED
 from .neighbors import codebook, codebook_onehot, shingle_rows
-from .shingle import extract_shingles, shingle_ids
+from .shingle import extract_shingles
 
 GOLDEN = np.uint64(0x9E3779B97F4A7C15)
 
@@ -211,14 +213,6 @@ def _build_siggen_operands(k, f, scheme, device):
             torch.as_tensor(hyperplanes(k, f, scheme), device=device))
 
 
-def _gather_ids(ids, lengths, k):
-    """Shingle word ids with invalid shingles sent to the table's zero
-    row W: (N, S) int64."""
-    sh, _ = extract_shingles(ids, lengths, k)
-    wid = shingle_ids(sh)
-    return torch.where(wid >= 0, wid, ALPHABET_SIZE**k)
-
-
 # ---------------------------------------------------------------- signature gen
 def signatures_matmul(ids, lengths, *, k: int, T: int, f: int,
                       scheme: str = "java") -> torch.Tensor:
@@ -248,10 +242,12 @@ def signatures_matmul(ids, lengths, *, k: int, T: int, f: int,
 
 def signatures_table(ids, lengths, *, k: int, T: int, f: int,
                      scheme: str = "java") -> torch.Tensor:
-    """Beyond-paper path: signature = pack(Σ_s C[shingle_id(s)] >= 0)."""
+    """Beyond-paper path: signature = pack(Σ_s C[shingle_id(s)] >= 0),
+    through the ``table_sums`` kernel on CUDA (its twin on the CPU)."""
+    from ..kernels import ops
+
     Ct = _device_table("contrib", k, T, f, scheme, ids.device)
-    V = torch.sum(Ct[_gather_ids(ids, lengths, k)], dim=1)  # (N, f)
-    return pack_bits(V >= 0)
+    return ops.table_sums(ids.contiguous(), lengths, Ct)
 
 
 def signatures(ids, lengths, *, k: int = 3, T: int = 13, f: int = 32,
@@ -263,7 +259,9 @@ def signatures(ids, lengths, *, k: int = 3, T: int = 13, f: int = 32,
 def feature_counts(ids, lengths, *, k: int, T: int) -> torch.Tensor:
     """Per-sequence total neighbour-feature count (N,) int32. Sequences
     with zero features collapse to the all-ones fingerprint and are
-    filtered by the paper's non-zero-signature rule (§5.2)."""
+    filtered by the paper's non-zero-signature rule (§5.2). Through the
+    ``table_sums`` kernel on CUDA (its twin on the CPU)."""
+    from ..kernels import ops
+
     table = _device_table("count", k, T, 0, "java", ids.device)
-    return torch.sum(table[_gather_ids(ids, lengths, k)], dim=1).to(
-        torch.int32)
+    return ops.table_sums(ids.contiguous(), lengths, table)

@@ -10,8 +10,9 @@ with a plain C interface:
 The file name carries a hash of the source and the flags, so an edited
 source rebuilds and an unchanged one is reused. nvcc's output (``-Xptxas
 -v``: each kernel's registers and spills) is kept beside the library and
-read by :func:`resource_usage`. All sources build at once,
-one nvcc process each, started together. The build directory sits beside
+read by :func:`resource_usage`. A library loaded by :func:`library` builds
+its own source alone; :func:`build_all` builds every source at once, one
+nvcc process each, started together. The build directory sits beside
 this file and is listed in ``.gitignore``; nothing else is written.
 
 Nothing here runs at import: the CPU tests import every module, and this
@@ -35,7 +36,7 @@ from ..obs.jit import trace_sentinel
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("siggen", "hamming", "sw", "spgemm")
+SOURCES = ("siggen", "hamming", "sw", "spgemm", "tablesum")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -65,11 +66,12 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
-def build_all() -> float:
-    """Compile every kernel library that is missing; returns the seconds
-    spent. Raises with nvcc's output if a source does not compile."""
+def build_all(names: tuple[str, ...] = SOURCES) -> float:
+    """Compile the kernel libraries of ``names`` (every source by default)
+    that are missing; returns the seconds spent. Raises with nvcc's output
+    if a source does not compile."""
     t0 = time.perf_counter()
-    todo = [n for n in SOURCES if not _target(n).exists()]
+    todo = [n for n in names if not _target(n).exists()]
     if not todo:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -132,7 +134,7 @@ def library(name: str) -> ctypes.CDLL:
 
 @trace_sentinel("kernel_library")
 def _load(name: str) -> ctypes.CDLL:
-    build_all()
+    build_all((name,))
     return ctypes.CDLL(str(_target(name)))
 
 

@@ -21,7 +21,8 @@ from . import ref
 #: kernel launches since the last :func:`reset_launches`, by kernel
 LAUNCHES = {"siggen_accumulate": 0, "hamming_dist": 0, "hamming_count": 0,
             "wave_scores_linear": 0, "wave_scores_affine": 0,
-            "ungapped_scores": 0, "upper_pairs": 0, "sw_rowwave": 0}
+            "ungapped_scores": 0, "upper_pairs": 0, "sw_rowwave": 0,
+            "table_sums": 0}
 
 #: ``None``, or a dict that collects, per kernel, the first launch's
 #: ``(args, kwargs)`` as the kernel launcher takes them
@@ -144,3 +145,44 @@ def emit_upper_pairs(offs_s, ids_s, *, cap: int) -> torch.Tensor:
                        offs_s.to(torch.int32).contiguous(),
                        ids_s.to(torch.int32).contiguous(), cap=cap)
     return ref.upper_pairs_ref(offs_s, ids_s, cap=cap)
+
+
+def _table_k(table: torch.Tensor) -> int:
+    """k of a per-word table of 20^k + 1 rows (row 20^k takes the invalid
+    shingles); raises for any other row count."""
+    from ..core.alphabet import ALPHABET_SIZE
+    for k in range(1, 6):
+        if table.shape[0] == ALPHABET_SIZE**k + 1:
+            return k
+    raise ValueError(f"a table of {table.shape[0]} rows is no per-word "
+                     f"table: it takes 20^k + 1 rows, k <= 5")
+
+
+def table_sums(ids, lengths, table) -> torch.Tensor:
+    """Job 1's table route (kernel ``table_sums``): per sequence, the sum of
+    the table rows of its shingles' word ids, invalid shingles at row W =
+    20^k (k from the table's rows). A (W + 1, f) int32 contribution table
+    gives the packed signatures (N, f//32) int32 of ``sum >= 0``; a
+    (W + 1,) int32 count table the sums (N,) int32, wrapped as the twin's
+    int64 sum cast to int32. ids (N, L) int8, lengths (N,) integer."""
+    if ids.dtype != torch.int8 or ids.dim() != 2:
+        raise TypeError(f"table_sums takes (N, L) int8 residues, got "
+                        f"{ids.dtype} of {ids.dim()} dims")
+    if table.dtype != torch.int32 or table.dim() not in (1, 2) or (
+            table.dim() == 2 and (table.shape[1] % 32 or not table.shape[1])):
+        raise TypeError(f"table_sums takes an int32 table (W + 1,) or "
+                        f"(W + 1, f), f a multiple of 32; got {table.dtype} "
+                        f"{tuple(table.shape)}")
+    k = _table_k(table)
+    if not (ids.is_contiguous() and table.is_contiguous()):
+        raise ValueError("table_sums takes contiguous residues and table")
+    if lengths.dim() != 1 or lengths.shape[0] != ids.shape[0] or (
+            lengths.dtype.is_floating_point or lengths.dtype == torch.bool):
+        raise ValueError(f"table_sums takes (N,) integer lengths, got "
+                         f"{lengths.dtype} {tuple(lengths.shape)}")
+    if _on_cuda(ids, lengths, table):
+        if len({ids.device, lengths.device, table.device}) != 1:
+            raise ValueError("table_sums operands must share one device")
+        from .tablesum import table_sums as launch
+        return _launch("table_sums", launch, ids, lengths, table, k=k)
+    return ref.table_sums_ref(ids, lengths, table, k=k)

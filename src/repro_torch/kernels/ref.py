@@ -13,6 +13,8 @@ from ..align.gotoh import wave_scores as wave_scores_ref  # twin of K3
 from ..align.smith_waterman import GAP, NEG, rowwave_rows
 from ..core.alphabet import ALPHABET_SIZE, BLOSUM62_PADDED, PAD
 from ..core.hamming import hamming_distance
+from ..core.shingle import extract_shingles, shingle_ids
+from ..core.simhash import pack_bits
 
 
 def _exact_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -38,6 +40,20 @@ def siggen_accumulate_ref(rows: torch.Tensor, cb: torch.Tensor,
         wts = torch.where(scores >= T, scores, 0)
         out[i:i + block] = _exact_mm(wts, Hi)
     return out
+
+
+def table_sums_ref(ids: torch.Tensor, lengths: torch.Tensor,
+                   table: torch.Tensor, *, k: int) -> torch.Tensor:
+    """Twin of ``table_sums``: every shingle's word id, invalid ones sent
+    to row W = 20^k, gathers its (N, S, ...) table rows; their int64 sum
+    over S gives a contribution table's packed signs (N, f//32) int32, or
+    a count table's sums cast to (N,) int32."""
+    sh, _ = extract_shingles(ids, lengths, k)
+    wid = shingle_ids(sh)
+    V = torch.sum(table[torch.where(wid >= 0, wid, ALPHABET_SIZE**k)], dim=1)
+    if table.dim() == 2:
+        return pack_bits(V >= 0)
+    return V.to(torch.int32)
 
 
 def hamming_dist_ref(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:

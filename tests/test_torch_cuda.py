@@ -2,7 +2,7 @@
 
 The kernels (K1 siggen, K2 dense Hamming, K3 wavefront SW, K4 ungapped
 X-drop, K5 SpGEMM pair emission, K6 Hamming threshold count, K7 row-wave
-SW) have no CPU or interpret mode, so every test here is marked ``cuda`` and skips where there is no
+SW, and ``table_sums``, job 1's table route) have no CPU or interpret mode, so every test here is marked ``cuda`` and skips where there is no
 card. The file imports no jax, so it also runs on a machine
 with the card and without JAX:
 
@@ -687,3 +687,100 @@ def test_loaded_index_on_card_serves_what_cpu_load_serves(cuda_device,
         a, b = fn(on[0]), fn(on[1])
         for x, y in zip(a, b):
             assert torch.equal(x.cpu(), y)
+
+
+def _table_inputs(N, L, k, seed, device):
+    """Residues and int64 lengths with the edges the table_sums kernel
+    meets in its first rows: lengths 0, < k, = k, = L and past L; PAD, a
+    residue above it and a negative one inside the length."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, 20, (N, L)).astype(np.int8)
+    lens = rng.integers(0, L + 1, N).astype(np.int64)
+    edges = [L, 0, k - 1, k, L + 7, L, L, L]
+    lens[:min(N, 8)] = edges[:min(N, 8)]
+    for n in range(N):
+        ids[n, min(lens[n], L):] = PAD
+    if N >= 8:
+        ids[5, 1], ids[6, 2], ids[7, 0] = PAD, 37, -3
+    return (torch.from_numpy(ids).to(device),
+            torch.from_numpy(lens).to(device))
+
+
+# table_sums at k in {3, 4} and f in {32, 64, 512}, or the count table
+# (f = 0); N = 1 and N off the 8 sequences a block; random tables, row W
+# (where invalid shingles go) not zero, so each invalid position counts
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 1001])
+@pytest.mark.parametrize("k,f", [(3, 32), (3, 64), (3, 512), (3, 0),
+                                 (4, 32), (4, 64), (4, 512), (4, 0)])
+def test_table_sums_kernel_matches_twin_on_card(cuda_device, k, f, N):
+    ids, lens = _table_inputs(N, 120, k, 20 + k + f, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(f + k)
+    shape = (20**k + 1, f) if f else (20**k + 1,)
+    table = torch.randint(-3000, 3000, shape, generator=g,
+                          device=cuda_device, dtype=torch.int32)
+    ops.reset_launches()
+    got = ops.table_sums(ids, lens, table)
+    assert ops.LAUNCHES["table_sums"] == 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.table_sums_ref(ids, lens, table, k=k))
+
+
+# the accumulator: past the int32 bound (int64 sums), and just under it
+# with every shingle on one extreme row, so the int32 sums reach 2^31 - 1
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["int64", "int32_at_the_bound"])
+def test_table_sums_kernel_accumulator_on_card(cuda_device, case):
+    from repro_torch.kernels import tablesum
+    from repro_torch.kernels.tablesum import accumulator_bits
+    k, L, f = 3, 300, 64
+    S = L - k + 1
+    ids, lens = _table_inputs(257, L, k, 3, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    if case == "int64":
+        m = 1 << 30
+        table = torch.randint(-m, m + 1, (20**k + 1, f), generator=g,
+                              device=cuda_device, dtype=torch.int32)
+    else:
+        m = ((1 << 31) - 1) // S
+        table = torch.where(torch.rand((20**k + 1, f), generator=g,
+                                       device=cuda_device) < 0.5, -m, m
+                            ).to(torch.int32)
+        table[0] = m                       # AAA...: every shingle word 0
+        table[-1] = -m                     # row W: the padded positions
+        ids[8:16] = 0
+        lens[8:12] = L
+    assert accumulator_bits(tablesum.max_abs(table), S) == (
+        64 if case == "int64" else 32)
+    assert torch.equal(ops.table_sums(ids, lens, table),
+                       ref.table_sums_ref(ids, lens, table, k=k))
+
+
+# job 1 through the pipeline on the card == on the CPU at the read shape
+# (81 residues) and a ref shape (~805), one launch for the signatures and
+# one for the counts; a search_pairs job launches it twice
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,L", [(20_000, 81), (2_000, 805)])
+def test_job1_card_equals_cpu_one_launch_each(cuda_device, N, L):
+    from repro_torch.core.pipeline import LSHConfig, ScalLoPS
+    from repro_torch.index.service import QueryEngine
+    from repro_torch.index.store import SignatureIndex
+    rng = np.random.default_rng(L)
+    ids = rng.integers(0, 20, (N, L)).astype(np.int8)
+    lens = rng.integers(L // 3, L + 1, N).astype(np.int32)
+    ids[np.arange(L)[None, :] >= lens[:, None]] = PAD
+    cfg = LSHConfig(k=3, T=13, f=32, d=1, scheme="splitmix")
+    card, cpu = ScalLoPS(cfg, device=cuda_device), ScalLoPS(cfg, device="cpu")
+    ops.reset_launches()
+    sigs = card.signatures(ids, lens)
+    assert ops.LAUNCHES["table_sums"] == 1
+    counts = card.feature_counts(ids, lens)
+    assert ops.LAUNCHES["table_sums"] == 2
+    assert torch.equal(sigs.cpu(), cpu.signatures(ids, lens))
+    assert torch.equal(counts.cpu(), cpu.feature_counts(ids, lens))
+    if L == 81:
+        idx = SignatureIndex.build(cfg, ids[:500], lens[:500],
+                                   device=cuda_device)
+        ops.reset_launches()
+        QueryEngine(idx).search_pairs(ids, lens)
+        assert ops.LAUNCHES["table_sums"] == 2

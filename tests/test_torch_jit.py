@@ -100,13 +100,17 @@ def test_cuda_spellings_share_one_key():
 
 def test_kernel_library_loads_once_per_source(fresh, monkeypatch):
     """``kernels/build.py::library`` loads each source's library once,
-    beneath its cache (no nvcc here: the build and the load are stubbed)."""
+    beneath its cache, and builds that source alone (no nvcc here: the
+    build and the load are stubbed)."""
+    built = []
     monkeypatch.setattr(build, "_libs", {})
-    monkeypatch.setattr(build, "build_all", lambda: 0.0)
+    monkeypatch.setattr(build, "build_all",
+                        lambda *names: built.append(names) or 0.0)
     monkeypatch.setattr(build.ctypes, "CDLL", lambda path: object())
     a = build.library("sw")
     assert build.library("sw") is a
     build.library("hamming")
+    assert built == [(("sw",),), (("hamming",),)]
     assert SENTINEL.by_site() == {"kernel_library": 2}
     assert SENTINEL.recompiled() == {}
 
