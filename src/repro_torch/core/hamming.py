@@ -47,7 +47,7 @@ _TILE_BYTES_PER_CELL = 8
 
 
 def threshold_pairs(q: torch.Tensor, r: torch.Tensor, d: int,
-                    max_pairs: int):
+                    max_pairs: int, *, stages=None):
     """Emit (qid, rid, dist) for all pairs with Hamming distance <= d.
 
     Returns pairs (min(max_pairs, Q*R), 3) int32 — the reference's buffer
@@ -61,22 +61,46 @@ def threshold_pairs(q: torch.Tensor, r: torch.Tensor, d: int,
     queries with hits that start inside the buffer are emitted, a tile of
     rows at a time (K2 distances, ``<= d``, ``nonzero`` in row-major
     order), each tile under ``_TILE_BYTES``: the matrix is never whole.
+
+    ``stages``, where given, is told where the two stages lie, for the
+    caller's timing: ``stages.mark()`` as K6's count begins, after the
+    exclusive cumsum (the emission begins) and after the last tile, and
+    ``stages.tile(rows)`` for every tile of ``rows`` query rows. Neither
+    may wait for the device.
     """
     from ..kernels import ops
 
+    if stages is not None:
+        stages.mark()
     Q, R = q.shape[0], r.shape[0]
     counts = ops.hamming_counts(q, r, d).to(torch.int64)
     count = counts.sum()
     n_out = min(int(max_pairs), Q * R)
     pairs = torch.full((n_out, 3), -1, dtype=torch.int32, device=q.device)
     offsets = torch.cumsum(counts, 0) - counts
+    if stages is not None:
+        stages.mark()
+    _emit(q, r, d, counts, offsets, pairs, stages)
+    if stages is not None:
+        stages.mark()
+    return pairs, count
+
+
+def _emit(q, r, d, counts, offsets, pairs, stages) -> None:
+    """Write the hits of the queries that start inside ``pairs`` into it,
+    a tile of rows at a time."""
+    from ..kernels import ops
+
+    n_out, R = pairs.shape[0], r.shape[0]
     emit = torch.nonzero((counts > 0) & (offsets < n_out))[:, 0]
     if len(emit) == 0:
-        return pairs, count
+        return
     starts = offsets[emit].cpu()
     step = max(1, _TILE_BYTES // (_TILE_BYTES_PER_CELL * R))
     for i in range(0, len(emit), step):
         rows = emit[i:i + step]
+        if stages is not None:
+            stages.tile(len(rows))
         dist = ops.all_pairs_hamming(q[rows], r)
         hit = torch.nonzero(dist <= d)
         start = int(starts[i])
@@ -85,4 +109,3 @@ def threshold_pairs(q: torch.Tensor, r: torch.Tensor, d: int,
         pairs[start:start + m] = torch.stack(
             [rows[hit[:, 0]], hit[:, 1], dist[hit[:, 0], hit[:, 1]]],
             dim=-1).to(torch.int32)
-    return pairs, count

@@ -138,11 +138,14 @@ class ScalLoPS:
         return x.to(self.device).contiguous()
 
     def search(self, q_sigs, r_sigs, *, max_pairs: int | None = None,
-               q_valid=None, r_valid=None) -> SearchResult:
+               q_valid=None, r_valid=None, stages=None) -> SearchResult:
         """Join the signature sets. q_valid/r_valid: optional bool masks —
         pairs touching invalid (zero-feature) sequences are dropped, per
         the paper's non-zero-signature rule. Check ``overflowed`` before
-        trusting the pair buffer to be complete.
+        trusting the pair buffer to be complete. ``stages`` goes to the
+        dense join (:func:`~repro_torch.core.hamming.threshold_pairs`),
+        which marks its count and its emission there; the other joins
+        take no notice of it.
 
         Counts are int64 inside, so ``overflowed`` holds past 2^31 matches;
         ``count`` comes back int32, the reference's type."""
@@ -159,7 +162,7 @@ class ScalLoPS:
             pairs, count, truncated = band_join(q, r, f=cfg.f, d=cfg.d,
                                                 max_pairs=mp)
         elif cfg.join_method == "dense":
-            pairs, count = threshold_pairs(q, r, cfg.d, mp)
+            pairs, count = threshold_pairs(q, r, cfg.d, mp, stages=stages)
         else:
             raise ValueError(f"unknown join_method {cfg.join_method!r}")
         # overflow is judged on the raw join count: once the buffer

@@ -258,6 +258,38 @@ class _DeviceClock:
         return self._pool[a].elapsed_time(self._pool[b]) / 1e3
 
 
+class _JoinStages:
+    """The dense join's stages over one job's attempts, as
+    :func:`~repro_torch.core.hamming.threshold_pairs` marks them: three
+    marks an attempt (K6's count begins, the emission begins, the
+    emission ends), each a host stamp and an event of ``clock``, and the
+    emission tiles and query rows run so far. Reused job after job."""
+
+    def __init__(self, device: torch.device):
+        self.clock = _DeviceClock(device)
+        self.reset()
+
+    def reset(self) -> None:
+        self.tiles = self.rows = 0
+        self.stamps: list[tuple[float, int]] = []   # (host, tiles so far)
+
+    def mark(self) -> None:
+        self.clock.mark(len(self.stamps))
+        self.stamps.append((time.perf_counter(), self.tiles))
+
+    def tile(self, rows: int) -> None:
+        self.tiles += 1
+        self.rows += rows
+
+    def device_s(self, stage: int, attempts: int):
+        """Each attempt's device seconds of ``stage`` (0 the count, 1 the
+        emission), or None without a card."""
+        if not self.clock.on:
+            return None
+        return tuple(self.clock.seconds(3 * a + stage, 3 * a + stage + 1)
+                     for a in range(attempts))
+
+
 def _ms(seconds: float | None) -> float | None:
     return None if seconds is None else seconds * 1e3
 
@@ -288,6 +320,7 @@ class QueryEngine:
         self._stats = _Stats(self.name)
         self._pair_log: deque = deque(maxlen=PAIR_LOG_JOBS)
         self._clock = _DeviceClock(self.device)
+        self._stages = _JoinStages(self.device)
         self._ref_dev = None
         if self.cfg.rerank and ref_seqs is None:
             raise ValueError("rerank=True needs ref_seqs=(ref_ids, ref_lens)")
@@ -428,11 +461,18 @@ class QueryEngine:
         Every job adds an entry to :meth:`pair_stats`: its host stamps,
         attempts, bytes uploaded, and the device time of job 1 and of each
         attempt, from CUDA events read after the overflow check's sync (no
-        sync of their own). With the tracer on, the job is a
-        ``search_pairs`` span with a trace id of its own, around
-        ``pairs.job1`` and one ``pairs.join`` span an attempt; each span
+        sync of their own); a dense join adds each attempt's device time
+        of K6's count and of the emission, and the emission's tiles and
+        rows. With the tracer on, the job is a ``search_pairs`` span with a
+        trace id of its own, around ``pairs.job1`` and one ``pairs.join``
+        span an attempt, which in a dense join holds a
+        ``pairs.join.count`` and a ``pairs.join.emit`` span; each span
         carries its device time as ``dev_ms`` (None on the CPU)."""
         sl, clock = self.sl, self._clock
+        dense = self.index.cfg.join_method == "dense"
+        stages = self._stages if dense else None
+        if dense:
+            stages.reset()
         h2d0 = sl.h2d_bytes
         t0 = time.perf_counter()
         clock.mark(0)
@@ -447,7 +487,8 @@ class QueryEngine:
             clock.mark(2 + 2 * len(attempts))
             res = sl.search(q_sigs, self.index.device_sigs,
                             max_pairs=mp, q_valid=q_valid,
-                            r_valid=self.index.device_valid)
+                            r_valid=self.index.device_valid,
+                            stages=stages)
             clock.mark(3 + 2 * len(attempts))
             overflowed = bool(res.overflowed)
             attempts.append((ta, time.perf_counter(), mp, overflowed))
@@ -458,10 +499,15 @@ class QueryEngine:
         join_dev = (tuple(clock.seconds(2 + 2 * i, 3 + 2 * i)
                           for i in range(len(attempts)))
                     if clock.on else None)
+        count_dev = stages.device_s(0, len(attempts)) if dense else None
+        emit_dev = stages.device_s(1, len(attempts)) if dense else None
         self._pair_log.append(dict(
             t0=t0, t1=t1, attempts=len(attempts),
             h2d_bytes=sl.h2d_bytes - h2d0,
-            job1_dev_s=clock.seconds(0, 1), join_dev_s=join_dev))
+            job1_dev_s=clock.seconds(0, 1), join_dev_s=join_dev,
+            count_dev_s=count_dev, emit_dev_s=emit_dev,
+            emit_tiles=stages.tiles if dense else None,
+            emit_rows=stages.rows if dense else None))
         if TRACER.enabled:
             with trace_context((new_trace_id(),)):
                 record_span("search_pairs", t0, t1, cat="pairs",
@@ -475,6 +521,15 @@ class QueryEngine:
                     record_span("pairs.join", ta, tb, cat="pairs", attempt=i,
                                 capacity=cap, overflowed=ovf,
                                 dev_ms=_ms(join_dev[i] if join_dev else None))
+                    if not dense:
+                        continue
+                    (c0, _), (e0, k0), (e1, k1) = \
+                        stages.stamps[3 * i:3 * i + 3]
+                    record_span("pairs.join.count", c0, e0, cat="pairs",
+                                dev_ms=_ms(count_dev and count_dev[i]))
+                    record_span("pairs.join.emit", e0, e1, cat="pairs",
+                                tiles=k1 - k0,
+                                dev_ms=_ms(emit_dev and emit_dev[i]))
         return res
 
     # ------------------------------------------------------------ rerank
@@ -605,5 +660,10 @@ class QueryEngine:
         reset, oldest first. A job holds its host ``perf_counter`` stamps
         ``t0`` and ``t1``, its join ``attempts``, ``h2d_bytes`` (0 on a CPU
         pipeline), job 1's device seconds ``job1_dev_s`` and each attempt's,
-        ``join_dev_s`` (both None without a card)."""
+        ``join_dev_s`` (both None without a card). A dense join's job also
+        holds each attempt's device seconds of K6's count, ``count_dev_s``,
+        and of the emission, ``emit_dev_s`` (None without a card), and the
+        emission tiles and query rows of all its attempts, ``emit_tiles``
+        and ``emit_rows``; the four are None for the flip and band
+        joins."""
         return list(self._pair_log)

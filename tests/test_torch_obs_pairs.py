@@ -4,11 +4,12 @@ uploaded onto a card, device spans), its spans (``search_pairs`` around
 ``pairs.job1`` and one ``pairs.join`` an attempt, one trace id a job), and
 the tracer on the profiler's clock.
 
-Everything here runs on the CPU except the one ``cuda``-marked test, which
-skips without a card and holds the card's readings to three promises: the
-upload counter counts each read set's bytes twice, each device span is
-positive, and reading them adds no synchronizing call. The file imports no
-jax, so on a machine with the card:
+Everything here runs on the CPU except the two ``cuda``-marked tests,
+which skip without a card and hold the card's readings to three promises:
+the upload counter counts each read set's bytes twice, each device span is
+positive, and reading them adds no synchronizing call, in the flip job and
+in the dense join's count and emission stages. The file imports no jax,
+so on a machine with the card:
 
     python -m pytest -q -m cuda tests/test_torch_obs_pairs.py
 """
@@ -100,7 +101,8 @@ def test_pair_log_is_the_same_for_every_join_method(data, method):
     eng.search_pairs(data["query_ids"], data["query_lens"])
     [job] = eng.pair_stats()
     assert set(job) == {"t0", "t1", "attempts", "h2d_bytes", "job1_dev_s",
-                        "join_dev_s"}
+                        "join_dev_s", "count_dev_s", "emit_dev_s",
+                        "emit_tiles", "emit_rows"}
     assert job["attempts"] == len(searches) == 1
 
 
@@ -257,3 +259,39 @@ def test_device_spans_add_no_sync_on_card(data):
         assert job["job1_dev_s"] > 0
         assert len(job["join_dev_s"]) == job["attempts"] > 1
         assert all(s > 0 for s in job["join_dev_s"])
+
+
+@pytest.mark.cuda
+def test_dense_stage_spans_add_no_sync_on_card(data):
+    """The dense join's count and emission marks at d = 3, from a capacity
+    of 4: no more host syncs than the loop without them, the same dump,
+    and positive stage spans inside each attempt's join span."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the device spans are CUDA events")
+    cfg = LSHConfig(k=3, T=13, f=32, d=3, scheme="java", join_method="dense",
+                    max_pairs=1 << 14)
+    eng = QueryEngine(SignatureIndex.build(cfg, data["ref_ids"],
+                                           data["ref_lens"], device="cuda"),
+                      ServingConfig(k=3))
+    ids, lens = data["query_ids"], data["query_lens"]
+    for _ in range(2):      # warm both paths: lazy uploads, allocations
+        eng.search_pairs(ids, lens, max_pairs=4)
+        _bare_search_pairs(eng, ids, lens, 4)
+    torch.cuda.synchronize()
+    eng.reset_stats()
+    bare = _sync_warnings(lambda: _bare_search_pairs(eng, ids, lens, 4))
+    traced = _sync_warnings(lambda: eng.search_pairs(ids, lens, max_pairs=4))
+    assert bare > 0 and traced <= bare
+    got = eng.search_pairs(ids, lens, max_pairs=4)
+    want = _bare_search_pairs(eng, ids, lens, 4)
+    np.testing.assert_array_equal(got.pairs.cpu().numpy(),
+                                  want.pairs.cpu().numpy())
+    assert (int(got.count), bool(got.overflowed)) == \
+        (int(want.count), bool(want.overflowed))
+    for job in eng.pair_stats():
+        n = job["attempts"]
+        assert n > 1 and job["emit_tiles"] >= n
+        assert len(job["count_dev_s"]) == len(job["emit_dev_s"]) == n
+        for c, e, j in zip(job["count_dev_s"], job["emit_dev_s"],
+                           job["join_dev_s"]):
+            assert 0 < c and 0 < e and c + e <= j

@@ -2,7 +2,8 @@
 ``all_pairs_hamming``, the flip, band and dense joins (pair buffers, true
 counts and ``truncated``, bit for bit, at d in {0, 1, 2}, with buffers
 smaller than the true count so the truncation order is compared too),
-``ScalLoPS.search`` with masks and overflow, ``QueryEngine.search_pairs``,
+``ScalLoPS.search`` with masks and overflow, ``QueryEngine.search_pairs``
+(flip, and dense at d in {1, 3}, grown from a small capacity),
 and the paper's configs and FASTA I/O. Both packages take the same numpy
 inputs; every output is integer and compared exactly. On the CPU the dense
 join's kernels K6 and K2 run as their plain twins. The reference's joins
@@ -22,6 +23,9 @@ from repro.core import hamming as j_ham
 from repro.core import join as j_join
 from repro.core.pipeline import LSHConfig as JCfg, ScalLoPS as JScalLoPS
 from repro.data.synthetic import SyntheticProteinConfig, make_protein_sets
+from repro.index.service import QueryEngine as JEngine, \
+    ServingConfig as JServing
+from repro.index.store import SignatureIndex as JIndex
 
 from repro_torch.core import hamming as t_ham
 from repro_torch.core import join as t_join
@@ -381,6 +385,34 @@ def test_engine_search_pairs_grows_capacity(data, sigs):
     capped = te.search_pairs(data["query_ids"], data["query_lens"],
                              max_pairs=2, max_grow=4)
     assert bool(capped.overflowed) and capped.pairs.shape[0] == 4
+
+
+@pytest.mark.parametrize("d", [1, 3])
+def test_dense_search_pairs_grows_like_the_reference(data, d):
+    """A dense-joined index from a capacity of 4: the join retries until
+    nothing overflows, and the pair buffer, count and flag are the
+    reference's ``search_pairs``, and at d = 1 the flip join's, exactly."""
+    ids, lens = data["query_ids"], data["query_lens"]
+
+    def dump(engine):
+        res = engine.search_pairs(ids, lens, max_pairs=4)
+        return np.asarray(res.pairs), int(res.count), bool(res.overflowed)
+
+    def port(method):
+        cfg = TCfg(**dict(CFG, scheme="java", join_method=method, d=d))
+        return TEngine(TIndex.build(cfg, data["ref_ids"], data["ref_lens"],
+                                    device="cpu"), TServing(k=3))
+
+    te = port("dense")
+    got = dump(te)
+    assert got[1] > 4 and not got[2]
+    assert te.pair_stats()[0]["attempts"] > 1
+    jcfg = JCfg(**dict(CFG, scheme="java", join_method="dense", d=d))
+    want = dump(JEngine(JIndex.build(jcfg, data["ref_ids"],
+                                     data["ref_lens"]), JServing(k=3)))
+    _same(got, want)
+    if d == 1:
+        _same(got, dump(port("flip")))
 
 
 # ------------------------------------------------------------ configs, FASTA
